@@ -1,0 +1,3 @@
+"""Hand-written CUDA kernels of the port, each beside its plain torch
+version and its launch counter (``dia_spmv``: the DIA SpMV). See
+:mod:`spectra_tpu_torch.ops._build` for how they are built."""
