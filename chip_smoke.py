@@ -4,27 +4,44 @@ Run from the root of a checkout:
 
     python3 chip_smoke.py
 
-Phases, each printing JSON lines:
+Phases, each printing JSON lines and its wall time:
 
 1. environment: the card's name and power limit (``nvidia-smi``), the
    build of every kernel under ``spectra_tpu_torch/csrc`` (one ``nvcc``
    per source, all at once), and a check that f32 products are not TF32;
-2. every kernel against its plain PyTorch version on the card, at the
-   main path's shapes and a few others (tolerance below);
-3. the kernel's time at the full-width shape, in f64 and f32, beside its
-   memory bound, its plain version and one ``torch.sparse`` CSR product;
-4. ``SymEigsSolver`` on the g=100 2-D Laplacian (n = 10^4), checked
-   against the analytic spectrum;
-5. the main path: BASELINE config #2 as ``bench.py`` runs it, the
-   Chebyshev-filtered IRLM for the 10 largest eigenvalues of the
-   1M-node 2-D Laplacian, with the launch counters set to 0 just before
-   and read just after;
-6. a ``kernels`` line with each kernel's numbers;
-7. the last line, ``{"ok": true, "device": {...}}``.
+2. the streaming probe ``y = 2 x`` over 2^28 f32 (1 GiB) against
+   ``x * 2``: the card's measured bytes per second beside the data sheet;
+3. K1 (the DIA SpMV) against its plain PyTorch version on the card;
+4. K2 (the double-single hi/lo DIA SpMV) against its plain version, at
+   the north star's operator (3-D g=243, n = 14,348,907) and its
+   multigrid level 1 and a few other shapes, both entry points;
+5. K1's time at config #2's shape, f64 and f32, beside its bound, its
+   plain version and one ``torch.sparse`` CSR product;
+6. K2's time at g=243 in three modes: (A) K1 on the f64 matrix, (B) K2
+   on resident planes, (C) ``DiaHiLoMatrix.matvec`` with the split and
+   combine of every call; each beside its bound, plain version and the
+   ``torch.sparse`` CSR f64 product;
+7. ``SymEigsSolver`` on the g=100 2-D Laplacian (n = 10^4);
+8. config #2 as ``bench.py`` runs it (the Chebyshev-filtered IRLM for
+   the 10 largest eigenvalues of the 1M-node 2-D Laplacian), and a
+   profile of its start;
+9. config #3 (``bench.py:106-135``): shift-invert with the multigrid
+   inner solve, k=10 nearest sigma=0 of the 1M-node 2-D Laplacian;
+10. the north star: shift-invert with the multigrid inner solve, k=20
+    nearest sigma=0 of the 3-D 7-point Laplacian at g=243 (100,088,055
+    nonzeros), ncv=40, plain ``compute`` (``compute_locked``,
+    ``set_reorth("selective")`` and ``set_matvec_granularity``, which
+    ``bench.py`` and ``scripts/tpu_northstar_100m.py`` use, wait for
+    their slice: ROADMAP.md item 9), and a profile of a few of its inner
+    solves;
+11. a ``kernels`` line with each kernel's numbers;
+12. the last line, ``{"ok": true, "device": {...}}``.
 
-Any failed check raises, so the script exits non-zero and prints no
-``ok`` line. Without a CUDA device it exits with code 2 before any phase.
-Only the port is imported, never jax or the JAX package.
+Each path (the probe, config #2, config #3, the north star) sets the
+launch counters to 0 just before it and reads them just after. Any
+failed check raises, so the script exits non-zero and prints no ``ok``
+line. Without a CUDA device it exits with code 2 before any phase. Only
+the port is imported, never jax or the JAX package.
 """
 
 import json
@@ -44,8 +61,29 @@ CARDS = {
 }
 
 G_FULL = 1000  # the 1M-node 2-D Laplacian of BASELINE config #2
+G_NORTH = 243  # the 3-D Laplacian of the north star: 100,088,055 nnz
 DEGREE = 120
-REPLACES = "spectra_tpu/ops/dia_pallas.py:45"
+REPLACES = {
+    "dia_spmv": (
+        "spectra_tpu/ops/dia_pallas.py:45",
+        "spectra_tpu/ops/dia_pallas.py::dia_spmv_pallas",
+    ),
+    "dia_spmv_ds": (
+        "spectra_tpu/ops/dia_ds.py:143",
+        "spectra_tpu/ops/dia_ds.py::_ds_pallas (entry points "
+        "dia_spmv_ds_padded :83, dia_spmv_ds_ext :116); also "
+        "scripts/tpu_dia_ds_probe.py:67 dia_spmv_ds",
+    ),
+    "stream_scale": (
+        "scripts/tpu_pallas_stream_probe.py:29",
+        "scripts/tpu_pallas_stream_probe.py::scale_pallas",
+    ),
+}
+SOURCES = {
+    "dia_spmv": "dia_spmv.cu",
+    "dia_spmv_ds": "dia_ds.cu",
+    "stream_scale": "stream_scale.cu",
+}
 
 
 def emit(**obj):
@@ -74,6 +112,59 @@ def laplacian_3d(g):
 def analytic_2d(g):
     mu = 4 * np.sin(np.pi * np.arange(1, g + 1) / (2 * (g + 1))) ** 2
     return np.sort((mu[:, None] + mu[None, :]).ravel())
+
+
+def analytic_3d_smallest(g, count=64):
+    """The smallest eigenvalues of the 3-D Laplacian, with multiplicity:
+    only the ``count`` smallest 1-D modes contribute to them."""
+    mu = 4 * np.sin(np.pi * np.arange(1, g + 1) / (2 * (g + 1))) ** 2
+    m = mu[: min(g, count)]
+    return np.sort((m[:, None, None] + m[None, :, None] + m[None, None, :]).ravel())
+
+
+def prefix_captured(vals, lam, atol=1e-8):
+    """Length of the multiplicity-counted smallest prefix captured
+    (``scripts/tpu_northstar_100m.py``)."""
+    prefix = 0
+    for i, v in enumerate(np.sort(np.asarray(vals))):
+        if i < len(lam) and abs(v - lam[i]) < atol:
+            prefix = i + 1
+        else:
+            break
+    return prefix
+
+
+def expected_launches(mg, cls, cycles, solves):
+    """SpMVs with ``cls`` operators that ``mg_solve`` and the shift-solve
+    make, from the port's code: per V-cycle ``nu1 + 1 + nu2`` on every
+    level of that type (``v_cycle``) and one on level 0 for the residual
+    of ``mg_solve``'s loop; per solve one on level 0 for the first
+    residual and one for the backward-error check
+    (``_poison_if_unconverged``, on the operator, which is level 0)."""
+    on = [isinstance(op, cls) for op in mg.ops]
+    per_cycle = (mg.nu1 + 1 + mg.nu2) * sum(on) + int(on[0])
+    return cycles * per_cycle + solves * 2 * int(on[0])
+
+
+def torch_csr(torch, A, np_dtype):
+    """``A`` as a ``torch.sparse`` CSR tensor on the card."""
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(A.indptr.astype(np.int64)),
+        torch.from_numpy(A.indices.astype(np.int64)),
+        torch.from_numpy(A.data.astype(np_dtype)),
+        size=A.shape,
+    ).to("cuda")
+
+
+def enqueue_us(torch, fn, calls=100):
+    """Host microseconds of one call: enqueue ``calls`` calls, no sync."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / calls
+    torch.cuda.synchronize()
+    return us
 
 
 def card_rates(name):
@@ -163,12 +254,20 @@ def check_kernel(torch, dmod, pf):
     offsets17 = tuple(
         sorted(int(o) for o in rng.choice(np.arange(-5000, 5001), 17, replace=False))
     )
+    offsets40 = tuple(
+        sorted(int(o) for o in rng.choice(np.arange(-500, 501), 40, replace=False))
+    )
     worst = 0.0
     for dtype, rtol in ((torch.float64, 1e-13), (torch.float32, 1e-5)):
         mats = {k: pf.dia_from_scipy(A, dtype=dtype) for k, A in cases.items()}
         mats["banded_17_diagonals"] = pf.DiaMatrix(
             data=torch.randn((17, 10**6), dtype=dtype, device="cuda"),
             offsets=offsets17, n_rows=10**6, n_cols=10**6,
+        )
+        # 40 diagonals: the most a multigrid level may have
+        mats["banded_40_diagonals"] = pf.DiaMatrix(
+            data=torch.randn((40, 10**5), dtype=dtype, device="cuda"),
+            offsets=offsets40, n_rows=10**5, n_cols=10**5,
         )
         inputs = [(k, m, torch.randn(m.n_cols, dtype=dtype, device="cuda"))
                   for k, m in mats.items()]
@@ -200,12 +299,7 @@ def time_kernel(torch, dmod, pf, rates):
     out = {}
     for dtype, rate in ((torch.float64, f64_rate), (torch.float32, f32_rate)):
         m = pf.dia_from_scipy(A, dtype=dtype)
-        csr = torch.sparse_csr_tensor(
-            torch.from_numpy(A.indptr.astype(np.int64)),
-            torch.from_numpy(A.indices.astype(np.int64)),
-            torch.from_numpy(A.data.astype(np.dtype(str(dtype).split(".")[1]))),
-            size=A.shape,
-        ).to("cuda")
+        csr = torch_csr(torch, A, np.dtype(str(dtype).split(".")[1]))
         x = torch.randn(m.n_cols, dtype=dtype, device="cuda")
         d, n, item = len(m.offsets), m.n_rows, x.element_size()
         kernel_ms = timer.cold(lambda: m.matvec(x))
@@ -214,13 +308,7 @@ def time_kernel(torch, dmod, pf, rates):
         )
         library_ms = timer.cold(lambda: csr @ x)
         chained_ms = timer.chained(lambda v: m.matvec(v) * 0.125, x.clone())
-        # Host cost of one wrapper call: enqueue 100 launches, no sync.
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(100):
-            m.matvec(x)
-        enqueue_us = (time.perf_counter() - t0) * 1e4
-        torch.cuda.synchronize()
+        host_us = enqueue_us(torch, lambda: m.matvec(x))
         bytes_moved = (d + 2) * n * item  # data, x and y, once each
         flops = 2 * A.nnz
         bound_ms = max(bytes_moved / bandwidth, flops / rate) * 1e3
@@ -233,7 +321,7 @@ def time_kernel(torch, dmod, pf, rates):
             # host's enqueue (enqueue_us per call), so both rates are given.
             chained_ms=chained_ms, gnnz_s=A.nnz / (chained_ms * 1e-3) / 1e9,
             kernel_gnnz_s=A.nnz / (kernel_ms * 1e-3) / 1e9,
-            enqueue_us=enqueue_us, bytes=bytes_moved, nnz=int(A.nnz), d=d,
+            enqueue_us=host_us, bytes=bytes_moved, nnz=int(A.nnz), d=d,
             n=n,
         )
         emit(phase="kernel_timing", kernel="dia_spmv", dtype=str(dtype),
@@ -306,12 +394,35 @@ def run_main_path(torch, stt, dmod):
     return launches, op, v0
 
 
+def device_time_rows(prof):
+    """(device ms, kernel name, calls) per kernel, largest first. Kernel
+    rows only: an aten operator's row repeats the device time of the
+    kernels it launched. One stream, so kernels do not overlap."""
+    from torch.autograd import DeviceType
+
+    rows = [
+        (ev.self_device_time_total / 1e3, ev.key, ev.count)
+        for ev in prof.key_averages()
+        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
+    ]
+    rows.sort(reverse=True)
+    return rows
+
+
+def emit_profile(phase, prof, wall_ms, **extra):
+    rows = device_time_rows(prof)
+    busy_ms = sum(r[0] for r in rows)
+    emit(phase=phase, wall_ms=wall_ms, device_busy_ms=busy_ms,
+         device_busy_share=busy_ms / wall_ms if busy_ms else None,
+         top=[dict(name=k[:80], device_ms=t, calls=c) for t, k, c in rows[:12]],
+         **extra)
+
+
 def profile_start(torch, stt, op, v0):
-    """Where the time of the main path goes: the solve's start (spectrum
+    """Where the time of config #2 goes: the solve's start (spectrum
     bounds and the first 30-step filtered factorization, ~3.6k SpMVs)
     under torch.profiler, outside the counted run. Reports device time
     by kernel and the device's busy share of the wall time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -325,19 +436,397 @@ def profile_start(torch, stt, op, v0):
         e.compute(maxit=0)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # Kernel rows only: an aten operator's row repeats the device time
-    # of the kernels it launched. One stream, so kernels do not overlap.
-    rows = [
-        (ev.self_device_time_total / 1e3, ev.key, ev.count)
-        for ev in prof.key_averages()
-        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
-    ]
-    rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows)
-    emit(phase="profile_main_path_start", wall_ms=wall_ms,
-         device_busy_ms=busy_ms,
-         device_busy_share=busy_ms / wall_ms if busy_ms else None,
-         top=[dict(name=k[:80], device_ms=t, calls=c) for t, k, c in rows[:10]])
+    emit_profile("profile_main_path_start", prof, wall_ms)
+
+
+def phase_stream(torch, smod, bandwidth):
+    """The streaming probe over 2^28 f32: bitwise against ``x * 2``, its
+    rate beside the plain call's and the data sheet's."""
+    n = 1 << 28
+    x = torch.randn(n, dtype=torch.float32, device="cuda")
+    timer = Timer(torch)
+    smod.LAUNCHES = 0
+    y = smod.stream_scale2(x)
+    ref = smod.stream_scale2_plain(x)
+    torch.cuda.synchronize()
+    err = float((y - ref).abs().max())
+    bitwise = bool(torch.equal(y, ref))
+    del y, ref
+    ms = timer.cold(lambda: smod.stream_scale2(x), reps=20)
+    launches = smod.LAUNCHES
+    plain_ms = timer.cold(lambda: smod.stream_scale2_plain(x), reps=20)
+    library_ms = timer.cold(lambda: torch.mul(x, 2.0), reps=20)
+    bytes_moved = 8 * n
+    out = dict(
+        n=n, bytes=bytes_moved, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        bound_ms=bytes_moved / bandwidth * 1e3, bound_by="bytes",
+        gb_s=bytes_moved / (ms * 1e-3) / 1e9,
+        plain_gb_s=bytes_moved / (plain_ms * 1e-3) / 1e9,
+        datasheet_gb_s=bandwidth / 1e9, launches=launches, max_abs_err=err,
+        bitwise_equal=bitwise, enqueue_us=enqueue_us(torch, lambda: smod.stream_scale2(x), 20),
+    )
+    emit(phase="stream_probe", kernel="stream_scale", **out)
+    if not bitwise:
+        raise RuntimeError("stream_scale disagrees with x * 2")
+    return out
+
+
+def ext_reference(torch, data, offsets, x_ext, n):
+    """The f64 product with a halo-extended x (the ``_ext`` entry)."""
+    lo = max(0, -min(offsets))
+    y = torch.zeros(n, dtype=torch.float64, device="cuda")
+    for k, off in enumerate(offsets):
+        y = y + data[k] * x_ext[lo + off : lo + off + n]
+    return y
+
+
+def check_ds_kernel(torch, dsmod, pf, pmg, A243):
+    """K2 against its plain version on the card. Expected: bitwise equal
+    (every step a separately rounded f32 operation in both); stated
+    tolerance ``1e-12 * max|y|`` of the f64 K1 product, both against the
+    plain version and against that product. Returns the largest
+    |kernel - plain| (combined to f64), the g=243 f64 DiaMatrix and its
+    hi/lo matrix."""
+    import scipy.sparse as sps
+
+    rng = np.random.default_rng(1)
+    # Host steps of the hierarchy build, timed alone: scipy's todia (with
+    # the row alignment and the copy to the card) and scipy's Galerkin
+    # product P^T (A P) for level 1.
+    t0 = time.perf_counter()
+    dia243 = pf.dia_from_scipy(A243)
+    torch.cuda.synchronize()
+    todia_s = time.perf_counter() - t0
+    P = pmg.prolong_matrix((G_NORTH,) * 3, "clip")
+    t0 = time.perf_counter()
+    A1 = (P.T.tocsr() @ (A243 @ P)).tocsr()
+    galerkin_s = time.perf_counter() - t0
+    del P
+    emit(phase="north_star_host_steps", dia_from_scipy_s=todia_s,
+         galerkin_level1_s=galerkin_s, level1_nnz=int(A1.nnz))
+    n = 777
+    offsets17 = tuple(
+        sorted(int(o) for o in rng.choice(np.arange(-5000, 5001), 17, replace=False))
+    )
+    cases = {
+        "laplacian_3d_g243": dia243,
+        "mg_level1_g122": pf.dia_from_scipy(A1),
+        "n777_offsets_-3_0_1": pf.dia_from_scipy(sps.diags(
+            [np.ones(n - 3), 2.0 + np.arange(n), -np.ones(n - 1)], [-3, 0, 1]
+        ).tocsr()),
+        "offsets_-17_0_17": pf.DiaMatrix(
+            data=torch.randn((3, 10**5), dtype=torch.float64, device="cuda"),
+            offsets=(-17, 0, 17), n_rows=10**5, n_cols=10**5,
+        ),
+        "banded_17_diagonals": pf.DiaMatrix(
+            data=torch.randn((17, 10**6), dtype=torch.float64, device="cuda"),
+            offsets=offsets17, n_rows=10**6, n_cols=10**6,
+        ),
+    }
+    del A1
+    worst = 0.0
+
+    def judge(label, entry, yh, yl, ph, pl, ref, d, n):
+        nonlocal worst
+        y, yp = dsmod.combine_f64(yh, yl), dsmod.combine_f64(ph, pl)
+        scale = float(ref.abs().max())
+        err_plain = float((y - yp).abs().max())
+        err_f64 = float((y - ref).abs().max())
+        bitwise = bool(torch.equal(yh, ph) and torch.equal(yl, pl))
+        ok = err_plain <= 1e-12 * scale and err_f64 <= 1e-12 * scale
+        emit(phase="kernel_vs_plain", kernel="dia_spmv_ds", case=label,
+             entry=entry, d=d, n=n, max_abs_err=err_plain,
+             max_abs_err_vs_f64=err_f64, max_abs_y=scale,
+             bitwise_equal=bitwise, ok=ok)
+        if not ok:
+            raise RuntimeError(f"dia_spmv_ds disagrees on {label} ({entry})")
+        worst = max(worst, err_plain)
+
+    hilo243 = None
+    for label, dia in cases.items():
+        hilo = pf.DiaHiLoMatrix.from_dia(dia)
+        offs, n = hilo.offsets, hilo.n_rows
+        x = torch.randn(n, dtype=torch.float64, device="cuda")
+        xh, xl = dsmod.split_f64(x)
+        yh, yl = dsmod.dia_spmv_ds_padded(
+            hilo.data_hi, hilo.data_lo, xh, xl, offsets=offs, n=n
+        )
+        ph, pl = dsmod.dia_spmv_ds_plain(
+            hilo.data_hi, hilo.data_lo, xh, xl, offsets=offs, n=n
+        )
+        judge(label, "padded", yh, yl, ph, pl, dia.matvec(x), len(offs), n)
+        if label == "banded_17_diagonals":
+            lo, hi = max(0, -min(offs)), max(0, max(offs))
+            x_ext = torch.randn(lo + n + hi, dtype=torch.float64, device="cuda")
+            xh, xl = dsmod.split_f64(x_ext)
+            yh, yl = dsmod.dia_spmv_ds_ext(
+                hilo.data_hi, hilo.data_lo, xh, xl, offsets=offs, n=n
+            )
+            ph, pl = dsmod.dia_spmv_ds_ext_plain(
+                hilo.data_hi, hilo.data_lo, xh, xl, offsets=offs, n=n
+            )
+            ref = ext_reference(torch, dia.data, offs, x_ext, n)
+            judge(label + "_random_halos", "ext", yh, yl, ph, pl, ref,
+                  len(offs), n)
+        if label == "laplacian_3d_g243":
+            hilo243 = hilo
+            # matmat: one launch per column; Y holds combine(K2).
+            X = torch.randn((n, 10), dtype=torch.float64, device="cuda")
+            Y = hilo.matmat(X)
+            ref = dia.matmat(X)
+            err_mm, bitwise_mm = 0.0, True
+            for c in range(10):
+                yp = dsmod.combine_f64(*dsmod.dia_spmv_ds_plain(
+                    hilo.data_hi, hilo.data_lo,
+                    *dsmod.split_f64(X[:, c].contiguous()), offsets=offs, n=n,
+                ))
+                scale = float(ref[:, c].abs().max())
+                err = float((Y[:, c] - yp).abs().max())
+                err_f64 = float((Y[:, c] - ref[:, c]).abs().max())
+                if err > 1e-12 * scale or err_f64 > 1e-12 * scale:
+                    raise RuntimeError(f"dia_spmv_ds matmat column {c} disagrees")
+                err_mm = max(err_mm, err)
+                bitwise_mm = bitwise_mm and bool(torch.equal(Y[:, c], yp))
+            emit(phase="kernel_vs_plain", kernel="dia_spmv_ds",
+                 case="matmat_10_columns_g243", entry="padded", d=len(offs),
+                 n=n, max_abs_err=err_mm, bitwise_equal=bitwise_mm, ok=True)
+            worst = max(worst, err_mm)
+            del X, Y, ref
+        else:
+            del hilo
+    del cases
+    torch.cuda.empty_cache()
+    return worst, dia243, hilo243
+
+
+def time_ds(torch, dsmod, dmod, A243, dia, hilo, rates, stream_gbs):
+    """K2 at g=243 in the three modes of ``scripts/tpu_dia_ds_probe.py``,
+    with the L2 flushed before each call: (A) K1 on the f64 matrix,
+    (B) K2 on resident planes, (C) ``DiaHiLoMatrix.matvec`` with the
+    split and combine of every call. Each beside its bound from bytes,
+    its plain version and the ``torch.sparse`` CSR f64 product (one
+    library call computing the same y = A x). B and C are validated
+    against the f64 product to ~1e-14 relative, as the probe does."""
+    bandwidth, f64_rate, f32_rate = rates
+    timer = Timer(torch)
+    n, offs, d = dia.n_rows, dia.offsets, len(dia.offsets)
+    x = torch.randn(n, dtype=torch.float64, device="cuda")
+    xh, xl = dsmod.split_f64(x)
+    hi, lo = hilo.data_hi, hilo.data_lo
+    ref = dia.matvec(x)
+    y_b = dsmod.combine_f64(*dsmod.dia_spmv_ds_padded(hi, lo, xh, xl, offsets=offs, n=n))
+    y_c = hilo.matvec(x)
+    scale = float(ref.abs().max())
+    rel_b = float((y_b - ref).abs().max()) / scale
+    rel_c = float((y_c - ref).abs().max()) / scale
+    del y_b, y_c
+    csr = torch_csr(torch, A243, np.float64)
+    library_ms = timer.cold(lambda: csr @ x)
+    y_lib = csr @ x
+    rel_lib = float((y_lib - ref).abs().max()) / scale
+    del csr, y_lib
+    # The terms this data needs: row i and diagonal k with i + off in range.
+    terms = sum(n - abs(o) for o in offs)
+    modes = {
+        "A_k1_f64": dict(
+            fn=lambda: dia.matvec(x),
+            plain=lambda: dmod.dia_spmv_plain(dia.data, offs, x, n),
+            bytes=(d + 2) * 8 * n, ops=2 * terms, rate=f64_rate,
+        ),
+        "B_k2_resident_planes": dict(
+            fn=lambda: dsmod.dia_spmv_ds_padded(hi, lo, xh, xl, offsets=offs, n=n),
+            plain=lambda: dsmod.dia_spmv_ds_plain(hi, lo, xh, xl, offsets=offs, n=n),
+            bytes=(d * 8 + 16) * n, ops=23 * terms, rate=f32_rate,
+        ),
+        "C_hilo_matvec_split_combine": dict(
+            fn=lambda: hilo.matvec(x),
+            plain=lambda: dsmod.combine_f64(*dsmod.dia_spmv_ds_plain(
+                hi, lo, *dsmod.split_f64(x), offsets=offs, n=n)),
+            bytes=(d * 8 + 16 + 32) * n, ops=23 * terms, rate=f32_rate,
+        ),
+    }
+    out = {}
+    for name, m in modes.items():
+        ms = timer.cold(m["fn"])
+        plain_ms = timer.cold(m["plain"])
+        t_bytes = m["bytes"] / bandwidth
+        t_ops = m["ops"] / m["rate"]
+        out[name] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            bound_ms=max(t_bytes, t_ops) * 1e3,
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            bytes=m["bytes"], bound_ms_at_stream_rate=m["bytes"] / (stream_gbs * 1e9) * 1e3,
+            fraction_of_bound=max(t_bytes, t_ops) * 1e3 / ms,
+            fraction_of_stream_rate=m["bytes"] / (stream_gbs * 1e9) * 1e3 / ms,
+            gnnz_s=int(A243.nnz) / (ms * 1e-3) / 1e9,
+            enqueue_us=enqueue_us(torch, m["fn"]),
+        )
+        emit(phase="ds_timing", mode=name, d=d, n=n, nnz=int(A243.nnz), **out[name])
+    emit(phase="ds_accuracy", rel_err_B_vs_f64=rel_b, rel_err_C_vs_f64=rel_c,
+         rel_err_torch_sparse_vs_k1=rel_lib)
+    if rel_b > 1e-13 or rel_c > 1e-13:
+        raise RuntimeError("the double-single product is not f64-grade")
+    return out
+
+
+def run_config3(torch, stt, dmod, dsmod, pmg, pf):
+    """Config #3 (``bench.py:106-135``): k=10 nearest sigma=0 of the
+    1M-node 2-D Laplacian by shift-invert with the multigrid inner
+    solve. Every level is below the hi/lo threshold: all K1, no K2."""
+    from spectra_tpu_torch.util.rng import SimpleRandom
+
+    A = laplacian_2d(G_FULL)
+    v0 = SimpleRandom(0).random_vec(A.shape[0])
+    torch.cuda.synchronize()
+    dmod.LAUNCHES = dsmod.LAUNCHES = 0
+    pmg.CYCLES = pmg.SOLVES = 0
+    t0 = time.perf_counter()
+    op = stt.SparseSymShiftSolve.create(A, method="mg").set_shift(0.0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    e = stt.SymEigsShiftSolver.from_factored(op, 10, 30, 0.0)
+    e.init(v0)
+    nconv = e.compute(stt.SortRule.LargestMagn, maxit=50, tol=1e-10)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    k1, k2 = dmod.LAUNCHES, dsmod.LAUNCHES
+    cycles, solves = pmg.CYCLES, pmg.SOLVES
+    vals = np.sort(e.eigenvalues())
+    err = float(np.abs(vals - analytic_2d(G_FULL)[: len(vals)]).max()) if len(vals) else None
+    levels = [type(o).__name__ for o in op.mg.ops]
+    expected_k1 = expected_launches(op.mg, pf.DiaMatrix, cycles, solves)
+    emit(phase="config3_shift_invert_g1000", nconv=nconv, info=e.info().name,
+         restarts=e.num_iterations(), operations=e.num_operations(),
+         inner_solves=solves, v_cycles=cycles, k1_launches=k1,
+         expected_k1_launches=expected_k1, k2_launches=k2, levels=levels,
+         build_s=build_s, build_parts_s=op.build_s, solve_s=solve_s,
+         max_err_vs_analytic=err)
+    if nconv != 10 or e.info() != stt.CompInfo.Successful or err > 1e-9:
+        raise RuntimeError("config #3 did not converge to the analytic spectrum")
+    if not all(isinstance(o, pf.DiaMatrix) for o in op.mg.ops):
+        raise RuntimeError("a config #3 level is not a DiaMatrix")
+    if op.shifted is not op.mg.ops[0]:
+        raise RuntimeError("the operator and MG level 0 are not one matrix")
+    if k2 != 0 or k1 != expected_k1:
+        raise RuntimeError(f"config #3: K1 {k1} (expected {expected_k1}), K2 {k2}")
+    return k1
+
+
+def run_north_star(torch, stt, dmod, dsmod, pmg, pf, A, dia64, matrix_s):
+    """The north star at full width: k=20 nearest sigma=0 of the 3-D
+    g=243 Laplacian, multigrid inner solve, ncv=40, plain compute.
+    Returns the operator and the K1/K2 launches of the run."""
+    from spectra_tpu_torch.util.rng import SimpleRandom
+
+    n = A.shape[0]
+    v0 = SimpleRandom(0).random_vec(n)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dmod.LAUNCHES = dsmod.LAUNCHES = 0
+    pmg.CYCLES = pmg.SOLVES = 0
+    t0 = time.perf_counter()
+    w = stt.SparseSymShiftSolve.create(A, method="mg")
+    create_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    op = w.set_shift(0.0)
+    torch.cuda.synchronize()
+    set_shift_s = time.perf_counter() - t0
+    del w
+    build_cycles, build_solves = pmg.CYCLES, pmg.SOLVES
+    t0 = time.perf_counter()
+    e = stt.SymEigsShiftSolver.from_factored(op, 20, 40, 0.0)
+    e.init(v0)
+    nconv = e.compute(stt.SortRule.LargestMagn, maxit=60, tol=1e-10,
+                      sorting=stt.SortRule.SmallestAlge)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    k1, k2 = dmod.LAUNCHES, dsmod.LAUNCHES
+    cycles, solves = pmg.CYCLES, pmg.SOLVES
+    peak = torch.cuda.max_memory_allocated()
+    mg = op.mg
+    expected_k2 = expected_launches(mg, pf.DiaHiLoMatrix, cycles, solves)
+    expected_k1 = expected_launches(mg, pf.DiaMatrix, cycles, solves)
+    vals = e.eigenvalues()
+    lam = analytic_3d_smallest(G_NORTH)
+    dist = [float(np.abs(lam - v).min()) for v in vals]
+    res = e._result
+    # Residuals through K1 on the f64 matrix (the "auto" route would give
+    # the hi/lo planes at this size).
+    vecs = e.eigenvectors()
+    lam_t = torch.from_numpy(vals).to(vecs.device)
+    R = dia64.matmat(vecs) - vecs * lam_t
+    rel_res = (torch.linalg.vector_norm(R, dim=0) / lam_t.abs()).cpu().numpy()
+    del vecs, R
+    levels = [type(o).__name__ for o in mg.ops]
+    emit(phase="north_star_g243", n=n, nnz=int(A.nnz), nconv=nconv,
+         info=e.info().name, restarts=e.num_iterations(),
+         operations=e.num_operations(), inner_solves=solves, v_cycles=cycles,
+         build_inner_solves=build_solves, build_v_cycles=build_cycles,
+         k2_launches=k2, expected_k2_launches=expected_k2, k1_launches=k1,
+         expected_k1_launches=expected_k1, levels=levels,
+         level_dims=[list(dm) for dm in mg.dims_per_level],
+         host_build_s=dict(matrix=matrix_s, create_symmetrize=create_s,
+                           **op.build_s, set_shift_total=set_shift_s),
+         solve_s=solve_s, max_memory_allocated=peak,
+         max_dist_to_analytic=max(dist), max_rel_residual=float(rel_res.max()),
+         prefix_captured=prefix_captured(vals, lam), eigenvalues=vals.tolist(),
+         V_device=str(res.V.device))
+    if nconv != 20 or e.info() != stt.CompInfo.Successful:
+        raise RuntimeError("the north star did not converge 20/20")
+    if max(dist) > 1e-9:
+        raise RuntimeError("a north-star eigenvalue is not an analytic one")
+    if rel_res.max() > 1e-8:
+        raise RuntimeError("a north-star eigenpair residual exceeds 1e-8")
+    if not (isinstance(mg.ops[0], pf.DiaHiLoMatrix) and isinstance(mg.ops[1], pf.DiaHiLoMatrix)
+            and all(isinstance(o, pf.DiaMatrix) for o in mg.ops[2:])):
+        raise RuntimeError(f"unexpected level formats {levels}")
+    if op.shifted is not mg.ops[0]:
+        raise RuntimeError("the operator and MG level 0 are not one matrix")
+    if res.V.device.type != "cuda":
+        raise RuntimeError("the Krylov basis left the card")
+    if k2 == 0 or k2 != expected_k2 or k1 != expected_k1:
+        raise RuntimeError(
+            f"north star: K2 {k2} (expected {expected_k2}), "
+            f"K1 {k1} (expected {expected_k1})"
+        )
+    return op, k1, k2
+
+
+def profile_north_star(torch, op, solves=3):
+    """Where the north star's time goes: a few inner solves (its
+    operator applications) under torch.profiler, outside the counted
+    run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from spectra_tpu_torch.linalg import multigrid as pmg
+
+    b = torch.randn(op.n, dtype=torch.float64, device="cuda")
+    op.perform_op(b)
+    torch.cuda.synchronize()
+    cycles = pmg.CYCLES
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(solves):
+            op.perform_op(b)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    emit_profile("profile_north_star_inner_solves", prof, wall_ms,
+                 inner_solves=solves, v_cycles=pmg.CYCLES - cycles)
+
+
+def kernel_entry(name, launches, max_abs_err, t, shape, **extra):
+    replaces, function = REPLACES[name]
+    return dict(
+        name=name, route="cuda", source=f"spectra_tpu_torch/csrc/{SOURCES[name]}",
+        replaces=replaces, replaces_function=function, shape=shape,
+        launches=launches, max_abs_err=max_abs_err, ms=t["ms"],
+        plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+        library_ms=t["library_ms"], kernel_us=t["ms"] * 1e3,
+        plain_us=t["plain_ms"] * 1e3, bound_us=t["bound_ms"] * 1e3,
+        library_us=None if t["library_ms"] is None else t["library_ms"] * 1e3,
+        **extra,
+    )
 
 
 def main():
@@ -347,32 +836,75 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import spectra_tpu_torch as stt
+    from spectra_tpu_torch.linalg import multigrid as pmg
+    from spectra_tpu_torch.ops import dia_ds as dsmod
     from spectra_tpu_torch.ops import dia_spmv as dmod
+    from spectra_tpu_torch.ops import stream as smod
     from spectra_tpu_torch.sparse import formats as pf
 
     torch.manual_seed(0)
-    name, _ = phase_environment(torch)
+    walls = {}
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - t0
+        emit(phase_wall=name, s=walls[name])
+        return out
+
+    name, _ = phase("environment", phase_environment, torch)
     rates = card_rates(name)
-    worst = check_kernel(torch, dmod, pf)
-    timing = time_kernel(torch, dmod, pf, rates)
-    run_irlm(torch, stt, dmod)
-    launches, op, v0 = run_main_path(torch, stt, dmod)
-    profile_start(torch, stt, op, v0)
+    stream_t = phase("stream_probe", phase_stream, torch, smod, rates[0])
+    worst_k1 = phase("k1_vs_plain", check_kernel, torch, dmod, pf)
+
+    t0 = time.perf_counter()
+    A243 = laplacian_3d(G_NORTH)
+    matrix_s = time.perf_counter() - t0
+    emit(phase="north_star_matrix", g=G_NORTH, n=A243.shape[0],
+         nnz=int(A243.nnz), build_s=matrix_s)
+    worst_k2, dia243, hilo243 = phase(
+        "k2_vs_plain", check_ds_kernel, torch, dsmod, pf, pmg, A243
+    )
+    timing = phase("k1_timing", time_kernel, torch, dmod, pf, rates)
+    ds_t = phase("k2_timing", time_ds, torch, dsmod, dmod, A243, dia243,
+                 hilo243, rates, stream_t["gb_s"])
+    del hilo243
+    torch.cuda.empty_cache()
+    phase("irlm_g100", run_irlm, torch, stt, dmod)
+    launches, op, v0 = phase("config2_main_path", run_main_path, torch, stt, dmod)
+    phase("config2_profile", profile_start, torch, stt, op, v0)
+    del op, v0
+    k1_config3 = phase("config3", run_config3, torch, stt, dmod, dsmod, pmg, pf)
+    ns_op, k1_ns, k2_ns = phase(
+        "north_star", run_north_star, torch, stt, dmod, dsmod, pmg, pf, A243,
+        dia243, matrix_s,
+    )
+    del dia243
+    phase("north_star_profile", profile_north_star, torch, ns_op)
 
     f64 = timing["float64"]
-    emit(kernels=[dict(
-        name="dia_spmv", route="cuda",
-        source="spectra_tpu_torch/csrc/dia_spmv.cu",
-        replaces=REPLACES,
-        replaces_function="spectra_tpu/ops/dia_pallas.py::dia_spmv_pallas",
-        shape=f"d={f64['d']}, n={f64['n']}, float64",
-        launches=launches, max_abs_err=worst,
-        ms=f64["ms"], plain_ms=f64["plain_ms"], bound_ms=f64["bound_ms"],
-        bound_by=f64["bound_by"], library_ms=f64["library_ms"],
-        max_err=worst, kernel_us=f64["ms"] * 1e3,
-        plain_us=f64["plain_ms"] * 1e3, library_us=f64["library_ms"] * 1e3,
-        bound_us=f64["bound_ms"] * 1e3, float32=timing["float32"],
-    )])
+    b_mode = ds_t["B_k2_resident_planes"]
+    emit(kernels=[
+        kernel_entry(
+            "dia_spmv", launches, worst_k1, f64,
+            f"d={f64['d']}, n={f64['n']}, float64 (config #2)",
+            max_err=worst_k1, float32=timing["float32"],
+            launches_config2=launches, launches_config3=k1_config3,
+            launches_north_star=k1_ns,
+        ),
+        kernel_entry(
+            "dia_spmv_ds", k2_ns, worst_k2, b_mode,
+            f"d=7, n={G_NORTH ** 3}, f32 hi/lo planes (north-star operator)",
+            modes=ds_t, launches_north_star=k2_ns, launches_config3=0,
+        ),
+        kernel_entry(
+            "stream_scale", stream_t["launches"], stream_t["max_abs_err"],
+            stream_t, "n=2^28, float32",
+            gb_s=stream_t["gb_s"], datasheet_gb_s=stream_t["datasheet_gb_s"],
+            launches_path="the stream-probe phase (a probe, on no solver path)",
+        ),
+    ])
+    emit(phase_walls=walls, total_s=sum(walls.values()))
     emit(ok=True, device=dict(
         platform="gpu", kind=name, count=torch.cuda.device_count()
     ))

@@ -25,9 +25,11 @@
 // and of the +-g stencil rows come from L1 and L2 (the 8 MB x of the
 // 10^6-row case fits the 50 MB L2), so DRAM traffic stays near the
 // (d + 2) * n bound. The offsets travel by value in the launch
-// parameters (at most 32, the max_diags of dia_suitability), so one
-// build serves every stencil; the TPU kernel had to fix them at trace
-// time. A shared-memory x window or TMA is left for later tuning.
+// parameters (at most 64: 512 bytes of int64, far under the launch
+// parameter limit, and above the 40 diagonals a multigrid level may
+// have), so one build serves every stencil; the TPU kernel had to fix
+// them at trace time. A shared-memory x window or TMA is left for later
+// tuning.
 //
 // Numerics: built with -fmad=false, every term is a rounded multiply
 // followed by a rounded add, so the result is bitwise equal to the
@@ -42,7 +44,7 @@
 
 namespace {
 
-constexpr int kMaxDiags = 32;
+constexpr int kMaxDiags = 64;
 constexpr int kThreads = 256;
 constexpr int64_t kMaxBlocks = 1 << 20;
 

@@ -1,4 +1,6 @@
-"""Krylov factorization and the small tridiagonal kernels of the IRLM."""
+"""Krylov factorization and the small tridiagonal kernels of the IRLM;
+the inner solvers of shift-invert are the modules ``minres``,
+``cheb_solve`` and ``multigrid``."""
 
 from spectra_tpu_torch.linalg.givens import givens_rotation
 from spectra_tpu_torch.linalg.tridiag import (

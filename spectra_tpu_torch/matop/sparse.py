@@ -4,7 +4,10 @@ Port of :mod:`spectra_tpu.matop.sparse` (reference:
 include/Spectra/MatOp/SparseSymMatProd.h:31-108, SparseGenMatProd.h).
 ``create`` accepts a scipy.sparse matrix or a dense numpy array;
 ``format="auto"`` stores banded matrices as DIA (the hand-written
-kernel on the card) and everything else as ELLPACK. The reference's
+kernel on the card), large f64 stencils on the card as hi/lo DIA planes
+(:func:`~spectra_tpu_torch.sparse.formats.hilo_route`), and everything
+else as ELLPACK; ``format="dia_hilo"`` asks for the hi/lo planes. The
+reference's
 ``Uplo`` triangle selection is applied once on the host.
 
 Every constructor takes ``device``; ``None`` means the GPU and raises
@@ -16,6 +19,7 @@ import dataclasses
 import numpy as np
 
 from spectra_tpu_torch.sparse.formats import (
+    DiaHiLoMatrix,
     DiaMatrix,
     EllMatrix,
     dia_device_from_scipy,
@@ -35,14 +39,13 @@ def _is_scipy_sparse(mat) -> bool:
 def _to_ell(mat, dtype=None, format: str = "auto", device=None):
     """Device storage selection: ``"auto"`` picks DIA for banded
     matrices (gather-free stencil SpMV), ELL otherwise."""
-    if isinstance(mat, (EllMatrix, DiaMatrix)):
+    if isinstance(mat, (EllMatrix, DiaMatrix, DiaHiLoMatrix)):
         return mat
-    if format == "dia_hilo":
-        raise NotImplementedError(
-            "format='dia_hilo' (DiaHiLoMatrix) waits for slice B: "
-            "ROADMAP.md item 10"
-        )
     if _is_scipy_sparse(mat):
+        if format == "dia_hilo":
+            return DiaHiLoMatrix.from_dia(
+                dia_from_scipy(mat, dtype=dtype, device=device)
+            )
         if format == "auto" and dia_suitability(mat):
             return dia_device_from_scipy(mat, dtype=dtype, device=device)
         if format == "dia":
@@ -102,7 +105,7 @@ class _EllProdBase:
 class SparseGenMatProd(_EllProdBase):
     """y = A x for a general sparse real matrix."""
 
-    ell: object  # EllMatrix or DiaMatrix
+    ell: object  # EllMatrix, DiaMatrix or DiaHiLoMatrix
 
     @classmethod
     def create(cls, mat, dtype=None, format: str = "auto", device=None):
@@ -118,7 +121,7 @@ class SparseSymMatProd(_EllProdBase):
     (reference: MatOp/SparseSymMatProd.h:83-89).
     """
 
-    ell: object  # EllMatrix or DiaMatrix
+    ell: object  # EllMatrix, DiaMatrix or DiaHiLoMatrix
 
     @classmethod
     def create(

@@ -27,9 +27,11 @@ import torch
 
 from spectra_tpu_torch.ops import _build
 
-#: Most diagonals the kernel takes (the ``max_diags`` of
-#: :func:`spectra_tpu_torch.sparse.formats.dia_suitability`).
-MAX_DIAGS = 32
+#: Most diagonals the kernel takes: above the 40 that a multigrid level
+#: may have (:func:`spectra_tpu_torch.linalg.multigrid.build_mg`), and
+#: above ``dia_suitability``'s 32, which is a format rule, not a limit
+#: of the kernel.
+MAX_DIAGS = 64
 
 #: Kernel launches since import (or since a caller reset it to 0).
 LAUNCHES = 0

@@ -160,10 +160,14 @@ def irlm_restarts(arnop, carry: _LoopCarry, tol: float, restart_budget: int,
     return c
 
 
-def irlm_finalize(carry: _LoopCarry, *, nev: int,
-                  sorting: SortRule) -> IRLMResult:
-    """Sort the first nev Ritz pairs by ``sorting``."""
+def irlm_finalize(carry: _LoopCarry, transform_aux=None, *, nev: int,
+                  sorting: SortRule, transform=None) -> IRLMResult:
+    """Back-transform (``transform(values, transform_aux)``, e.g. the
+    shift-invert ``1/nu + sigma``) and sort the first nev Ritz pairs by
+    ``sorting``."""
     vals = carry.ritz_val[:nev]
+    if transform is not None:
+        vals = transform(vals, transform_aux)
     ind = argsort(sorting, vals)
     return IRLMResult(
         values=vals[ind],
@@ -177,9 +181,10 @@ def irlm_finalize(carry: _LoopCarry, *, nev: int,
     )
 
 
-def irlm_compute(arnop, v0, seed: int, maxit: int, tol: float, *, nev: int,
-                 ncv: int, selection: SortRule, sorting: SortRule,
-                 mode: str = "lanczos") -> IRLMResult:
+def irlm_compute(arnop, v0, seed: int, maxit: int, tol: float,
+                 transform_aux=None, *, nev: int, ncv: int,
+                 selection: SortRule, sorting: SortRule,
+                 mode: str = "lanczos", transform=None) -> IRLMResult:
     """Single-shot IRLM: start + restarts + finalize."""
     carry = irlm_start(
         arnop, v0, seed, tol, nev=nev, ncv=ncv, selection=selection, mode=mode
@@ -188,4 +193,6 @@ def irlm_compute(arnop, v0, seed: int, maxit: int, tol: float, *, nev: int,
         arnop, carry, tol, maxit, nev=nev, ncv=ncv, selection=selection,
         mode=mode,
     )
-    return irlm_finalize(carry, nev=nev, sorting=sorting)
+    return irlm_finalize(
+        carry, transform_aux, nev=nev, sorting=sorting, transform=transform
+    )

@@ -34,9 +34,15 @@ def _waits(feature: str, item: int):
 
 
 class HermEigsBase:
-    """Base for the symmetric IRLM solver drivers."""
+    """Base for the symmetric IRLM solver drivers.
+
+    Subclasses may set ``_ritz_transform`` (a static function
+    ``(nu, aux) -> lambda``) and ``_transform_aux`` for an eigenvalue
+    back-transform, the reference's ``sort_ritzpair`` override seam.
+    """
 
     _mode = "lanczos"
+    _ritz_transform = None
 
     def __init__(self, op, nev: int, ncv: int, bop=None):
         if op.dtype not in (torch.float32, torch.float64):
@@ -136,14 +142,18 @@ class HermEigsBase:
         """Run the solver; returns the number of converged eigenvalues."""
         if self._v0 is None:
             self.init()
+        from spectra_tpu_torch.matop.shift_solve import couple_inner_tolerance
+
+        self._arnop = couple_inner_tolerance(self._arnop, tol)
         fixed = dict(
             nev=self._nev, ncv=self._ncv, selection=selection, mode=self._mode
         )
         tol = float(tol)
         if self._restart_chunk is None:
             res = irlm_compute(
-                self._arnop, self._v0, 0, int(maxit), tol, sorting=sorting,
-                **fixed,
+                self._arnop, self._v0, 0, int(maxit), tol,
+                self._transform_aux(), sorting=sorting,
+                transform=type(self)._ritz_transform, **fixed,
             )
             return self._finish_result(res)
         carry = irlm_start(self._arnop, self._v0, 0, tol, **fixed)
@@ -162,7 +172,10 @@ class HermEigsBase:
             if not np.isfinite(beta):
                 break
         self._carry = carry
-        res = irlm_finalize(carry, nev=self._nev, sorting=sorting)
+        res = irlm_finalize(
+            carry, self._transform_aux(), nev=self._nev, sorting=sorting,
+            transform=type(self)._ritz_transform,
+        )
         return self._finish_result(res)
 
     def _finish_result(self, res) -> int:
@@ -177,6 +190,9 @@ class HermEigsBase:
             else CompInfo.NotConverging
         )
         return min(self._nev, res.nconv)
+
+    def _transform_aux(self):
+        return None
 
     # -- accessors -------------------------------------------------------
     def info(self) -> CompInfo:

@@ -1,6 +1,6 @@
 """Device sparse matrix formats.
 
-Port of :mod:`spectra_tpu.sparse.formats`. Two formats:
+Port of :mod:`spectra_tpu.sparse.formats`. Three formats:
 
 * **ELLPACK** (:class:`EllMatrix`): every row padded to a fixed width
   ``L = max nnz/row`` with (column 0, value 0) entries, so the SpMV
@@ -10,12 +10,23 @@ Port of :mod:`spectra_tpu.sparse.formats`. Two formats:
   for banded and stencil matrices (the grid Laplacians). Its ``matvec``
   and ``matmat`` run the hand-written kernel
   :func:`spectra_tpu_torch.ops.dia_spmv.dia_spmv` on the card.
+* **DIA hi/lo** (:class:`DiaHiLoMatrix`): the f64 diagonals as two f32
+  planes; its ``matvec`` runs the double-single kernel
+  :func:`spectra_tpu_torch.ops.dia_ds.dia_spmv_ds_padded` on the card
+  (about 2^-48 relative).
 
 Host conversion from scipy.sparse or dense numpy runs once, when an
 operator is built, and places the arrays on ``device`` (``None`` means
 the GPU; see :func:`spectra_tpu_torch.util.capabilities.resolve_device`).
-The JAX package's hi/lo-plane ``DiaHiLoMatrix`` waits for its slice
-(ROADMAP.md item 10).
+
+Routing (:func:`hilo_route`): the port routes as the JAX package does on
+its accelerator. A square f64 DIA matrix on the card whose SpMV working
+set ``(d + 2) * 8 * n`` reaches :data:`HILO_BYTES_THRESHOLD` becomes a
+:class:`DiaHiLoMatrix` in :func:`dia_device_from_scipy` and
+:func:`maybe_hilo`, so the port computes what the JAX package computes
+on the TPU: double-single SpMVs for stencils that live in device
+memory. On the CPU nothing is routed, as the JAX package routes nothing
+off the TPU.
 """
 
 import dataclasses
@@ -23,6 +34,12 @@ import dataclasses
 import numpy as np
 import torch
 
+from spectra_tpu_torch.ops.dia_ds import (
+    combine_f64,
+    dia_spmv_ds_padded,
+    hilo_suitable,
+    split_f64,
+)
 from spectra_tpu_torch.ops.dia_spmv import dia_spmv
 from spectra_tpu_torch.util.capabilities import resolve_device
 from spectra_tpu_torch.util.dtypes import numpy_dtype
@@ -219,6 +236,144 @@ class DiaMatrix:
         return A
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class DiaHiLoMatrix:
+    """DIA matrix stored as f32 hi/lo planes: ``data_hi + data_lo`` is
+    the two-term decomposition of the f64 diagonals (``hi = f32(a)``,
+    ``lo = f32(a - hi)``, residual <= 2^-48 relative, a backward
+    perturbation of A far under any solver tolerance).
+
+    ``matvec`` splits x the same way, runs the double-single SpMV (the
+    kernel on the card, its plain version on the CPU) and combines the
+    result to f64; it never switches to the f64 :class:`DiaMatrix`.
+    ``matmat`` runs one column per launch, as the JAX package's
+    ``lax.map`` does. The other accessors read the planes without
+    building the whole f64 matrix, except ``to_dia``, ``data``,
+    ``rmatvec`` and ``to_dense``.
+    """
+
+    data_hi: torch.Tensor  # (d, n_rows) f32
+    data_lo: torch.Tensor  # (d, n_rows) f32
+    offsets: tuple
+    n_rows: int
+    n_cols: int
+
+    @property
+    def dtype(self):
+        return torch.float64
+
+    @property
+    def device(self):
+        return self.data_hi.device
+
+    @property
+    def nnz(self) -> int:
+        return int(self.data_hi.shape[0] * self.n_rows)
+
+    @classmethod
+    def from_dia(cls, dia: "DiaMatrix") -> "DiaHiLoMatrix":
+        if not hilo_suitable(dia.dtype, dia.n_rows, dia.n_cols, len(dia.offsets)):
+            raise ValueError(
+                "the hi/lo format takes a square f64 DIA matrix with at most "
+                "64 diagonals"
+            )
+        hi, lo = split_f64(dia.data)
+        return cls(
+            data_hi=hi, data_lo=lo, offsets=dia.offsets, n_rows=dia.n_rows,
+            n_cols=dia.n_cols,
+        )
+
+    def to_dia(self) -> "DiaMatrix":
+        """The f64 :class:`DiaMatrix` of the planes' sum (a full f64
+        copy of the diagonals)."""
+        return DiaMatrix(
+            data=combine_f64(self.data_hi, self.data_lo),
+            offsets=self.offsets,
+            n_rows=self.n_rows,
+            n_cols=self.n_cols,
+        )
+
+    @property
+    def data(self):
+        return self.to_dia().data
+
+    def row_abs_sums(self):
+        """``sum_k |a_k[i]|`` per row, one diagonal at a time, so no
+        (d, n) f64 copy is made."""
+        acc = torch.zeros(self.n_rows, dtype=torch.float64, device=self.device)
+        for k in range(len(self.offsets)):
+            acc = acc + combine_f64(self.data_hi[k], self.data_lo[k]).abs()
+        return acc
+
+    def matvec(self, x):
+        if x.dtype != torch.float64:
+            raise TypeError("DiaHiLoMatrix.matvec takes a float64 vector")
+        xh, xl = split_f64(x)
+        yh, yl = dia_spmv_ds_padded(
+            self.data_hi, self.data_lo, xh, xl, offsets=self.offsets,
+            n=self.n_rows,
+        )
+        return combine_f64(yh, yl)
+
+    def matmat(self, X):
+        return torch.stack(
+            [self.matvec(X[:, c].contiguous()) for c in range(X.shape[1])],
+            dim=1,
+        )
+
+    def rmatvec(self, x):
+        return self.to_dia().rmatvec(x)
+
+    def element(self, i: int, j: int):
+        if j - i in self.offsets:
+            k = self.offsets.index(j - i)
+            return combine_f64(self.data_hi[k, i], self.data_lo[k, i])
+        return torch.zeros((), dtype=self.dtype, device=self.device)
+
+    def diagonal(self):
+        if 0 in self.offsets:
+            k = self.offsets.index(0)
+            return combine_f64(self.data_hi[k], self.data_lo[k])
+        return torch.zeros(self.n_rows, dtype=self.dtype, device=self.device)
+
+    def to_dense(self):
+        return self.to_dia().to_dense()
+
+
+#: SpMV working-set bytes ``(d + 2) * 8 * n`` from which a square f64
+#: DIA matrix on the card is stored as hi/lo planes: the JAX package's
+#: threshold (``spectra_tpu/sparse/formats.py:361``), kept so that the
+#: port computes what the JAX package computes on its accelerator.
+HILO_BYTES_THRESHOLD = 120 * 1024 * 1024
+
+
+def hilo_route(dtype, n_rows: int, n_cols: int, d: int, device_type: str,
+               threshold: int | None = None) -> bool:
+    """Whether a DIA matrix of this dtype, shape and number of diagonals
+    on a device of ``device_type`` is stored as hi/lo planes: only on
+    ``"cuda"``, only where the kernel takes it, and only from
+    ``threshold`` bytes of working set (default
+    :data:`HILO_BYTES_THRESHOLD`)."""
+    limit = HILO_BYTES_THRESHOLD if threshold is None else threshold
+    return (
+        device_type == "cuda"
+        and numpy_dtype(dtype) == np.float64
+        and hilo_suitable(torch.float64, n_rows, n_cols, d)
+        and (d + 2) * 8 * n_rows >= limit
+    )
+
+
+def maybe_hilo(dia, threshold: int | None = None):
+    """``dia`` as a :class:`DiaHiLoMatrix` where :func:`hilo_route` says
+    so, else ``dia`` itself."""
+    if not isinstance(dia, DiaMatrix):
+        return dia
+    if not hilo_route(dia.dtype, dia.n_rows, dia.n_cols, len(dia.offsets),
+                      dia.device.type, threshold):
+        return dia
+    return DiaHiLoMatrix.from_dia(dia)
+
+
 def _dia_host_arrays(sp_mat, dtype=None):
     """Row-aligned host DIA arrays ``(offsets, rows, n_rows, n_cols)``
     from scipy sparse, through scipy's ``todia``. (The JAX package
@@ -255,12 +410,30 @@ def dia_from_scipy(sp_mat, dtype=None, device=None) -> DiaMatrix:
     )
 
 
-def dia_device_from_scipy(sp_mat, dtype=None, device=None) -> DiaMatrix:
-    """DIA device storage for the ``format="auto"`` route. On the TPU
-    the JAX package sends large f64 stencils to hi/lo f32 planes here;
-    the card has native f64, and that route waits for slice B
-    (ROADMAP.md item 10), so every matrix becomes a :class:`DiaMatrix`."""
-    return dia_from_scipy(sp_mat, dtype=dtype, device=device)
+def dia_device_from_scipy(sp_mat, dtype=None, device=None):
+    """DIA device storage for the ``format="auto"`` route, with the
+    hi/lo routing (:func:`hilo_route`) decided before any transfer: a
+    routed matrix is split into its two f32 planes on the host and only
+    the planes go to the card (no f64 copy on the device)."""
+    device = resolve_device(device)
+    offsets, rows, n_rows, n_cols = _dia_host_arrays(sp_mat, dtype)
+    if hilo_route(rows.dtype, n_rows, n_cols, len(offsets), device.type):
+        hi = rows.astype(np.float32)
+        lo = (rows - hi.astype(np.float64)).astype(np.float32)
+        del rows
+        return DiaHiLoMatrix(
+            data_hi=_to_device(hi, device),
+            data_lo=_to_device(lo, device),
+            offsets=offsets,
+            n_rows=n_rows,
+            n_cols=n_cols,
+        )
+    return DiaMatrix(
+        data=_to_device(rows, device),
+        offsets=offsets,
+        n_rows=n_rows,
+        n_cols=n_cols,
+    )
 
 
 def dia_suitability(sp_mat, max_diags: int = 32) -> bool:

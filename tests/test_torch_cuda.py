@@ -10,7 +10,9 @@ import pytest
 import scipy.sparse as sps
 import torch
 
+from spectra_tpu_torch.ops import dia_ds as dsmod
 from spectra_tpu_torch.ops import dia_spmv as dmod
+from spectra_tpu_torch.ops import stream
 from spectra_tpu_torch.sparse import formats as pf
 
 
@@ -62,3 +64,61 @@ def test_wrapper_rejects_mixed_devices(cuda):
     data = torch.ones((3, 10), dtype=torch.float64, device="cuda")
     with pytest.raises(ValueError):
         dmod.dia_spmv(data, (-1, 0, 1), torch.ones(10, dtype=torch.float64), 10)
+
+
+@pytest.mark.cuda
+def test_ds_kernel_matches_plain_on_card(cuda):
+    """K2 against its plain version, both entry points, a 40-diagonal
+    band and the hi/lo matrix's matmat; every step is a separately
+    rounded f32 operation in both, so they agree bitwise."""
+    g = 40
+    lap1 = sps.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(g, g))
+    eye = sps.eye(g)
+    lap3 = (
+        sps.kron(sps.kron(lap1, eye), eye) + sps.kron(sps.kron(eye, lap1), eye)
+        + sps.kron(sps.kron(eye, eye), lap1)
+    ).tocsr() * np.pi
+    rng = np.random.default_rng(12)
+    wide = tuple(range(-60, 60, 3))  # 40 diagonals
+    band = sps.diags(
+        [rng.normal(size=4000) for _ in wide], wide, shape=(4000, 4000)
+    ).tocsr()
+    for A in (lap3, band):
+        dia = pf.dia_from_scipy(A, device="cuda")
+        hilo = pf.DiaHiLoMatrix.from_dia(dia)
+        n, offs = hilo.n_rows, hilo.offsets
+        lo, hi = max(0, -min(offs)), max(0, max(offs))
+        for x_len, entry, plain in (
+            (n, dsmod.dia_spmv_ds_padded, dsmod.dia_spmv_ds_plain),
+            (lo + n + hi, dsmod.dia_spmv_ds_ext, dsmod.dia_spmv_ds_ext_plain),
+        ):
+            xh, xl = dsmod.split_f64(
+                torch.randn(x_len, dtype=torch.float64, device="cuda")
+            )
+            before = dsmod.LAUNCHES
+            yh, yl = entry(hilo.data_hi, hilo.data_lo, xh, xl, offsets=offs, n=n)
+            torch.cuda.synchronize()
+            assert dsmod.LAUNCHES == before + 1
+            ph, pl = plain(hilo.data_hi, hilo.data_lo, xh, xl, offsets=offs, n=n)
+            assert torch.equal(yh, ph) and torch.equal(yl, pl)
+        X = torch.randn((n, 3), dtype=torch.float64, device="cuda")
+        Y = hilo.matmat(X)
+        for c in range(3):
+            xh, xl = dsmod.split_f64(X[:, c].contiguous())
+            ph, pl = dsmod.dia_spmv_ds_plain(
+                hilo.data_hi, hilo.data_lo, xh, xl, offsets=offs, n=n
+            )
+            assert torch.equal(Y[:, c], dsmod.combine_f64(ph, pl))
+        ref = dia.matvec(X[:, 0].contiguous())
+        assert float((Y[:, 0] - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_stream_probe_matches_plain_on_card(cuda):
+    for n in (1, 7, 4096, (1 << 20) + 3):
+        x = torch.randn(n, dtype=torch.float32, device="cuda")
+        before = stream.LAUNCHES
+        y = stream.stream_scale2(x)
+        torch.cuda.synchronize()
+        assert stream.LAUNCHES == before + 1
+        assert torch.equal(y, x * 2)

@@ -199,8 +199,13 @@ def test_format_routing():
     assert isinstance(
         SparseSymMatProd.from_full(rnd, device="cpu").ell, pf.EllMatrix
     )
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 10"):
-        SparseSymMatProd.from_full(lap, format="dia_hilo", device="cpu")
+    hilo = SparseSymMatProd.from_full(lap, format="dia_hilo", device="cpu").ell
+    assert isinstance(hilo, pf.DiaHiLoMatrix)
+    # "auto" never routes to hi/lo planes on the CPU
+    assert isinstance(
+        SparseSymMatProd.from_full(lap, format="auto", device="cpu").ell,
+        pf.DiaMatrix,
+    )
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():

@@ -51,6 +51,10 @@ def test_entry_points_default_to_the_gpu():
         stt.SparseSymMatProd.from_full(lap)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         stt.SparseGenMatProd.create(np.eye(4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stt.SparseSymShiftSolve.create(lap, method="mg").set_shift(0.0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stt.SparseSymShiftSolve.create(lap).set_shift(0.0)
     op = stt.SparseSymMatProd.from_full(lap, device="cpu")
     assert op.device.type == "cpu"
     s = stt.SymEigsSolver(op, nev=2, ncv=8)
@@ -61,8 +65,9 @@ def test_entry_points_default_to_the_gpu():
 
 def test_public_surface():
     assert set(stt.__all__) == {
-        "ChebSymEigsSolver", "CompInfo", "SortRule", "SparseGenMatProd",
-        "SparseSymMatProd", "SymEigsSolver",
+        "ChebSymEigsSolver", "CompInfo", "DiaHiLoMatrix", "SortRule",
+        "SparseGenMatProd", "SparseSymMatProd", "SparseSymShiftSolve",
+        "SymEigsShiftSolver", "SymEigsSolver", "maybe_hilo",
     }
     A = sps.random(20, 20, density=0.3, random_state=0, format="csr")
     op = stt.SparseGenMatProd.create(A, device="cpu")
