@@ -21,23 +21,29 @@ Phases, each printing JSON lines and its wall time:
    on resident planes, (C) ``DiaHiLoMatrix.matvec`` with the split and
    combine of every call; each beside its bound, plain version and the
    ``torch.sparse`` CSR f64 product;
-7. ``SymEigsSolver`` on the g=100 2-D Laplacian (n = 10^4);
-8. config #2 as ``bench.py`` runs it (the Chebyshev-filtered IRLM for
-   the 10 largest eigenvalues of the 1M-node 2-D Laplacian), and a
-   profile of its start;
-9. config #3 (``bench.py:106-135``): shift-invert with the multigrid
-   inner solve, k=10 nearest sigma=0 of the 1M-node 2-D Laplacian;
-10. the north star: shift-invert with the multigrid inner solve, k=20
-    nearest sigma=0 of the 3-D 7-point Laplacian at g=243 (100,088,055
-    nonzeros), ncv=40, plain ``compute`` (``compute_locked``,
-    ``set_reorth("selective")`` and ``set_matvec_granularity``, which
-    ``bench.py`` and ``scripts/tpu_northstar_100m.py`` use, wait for
-    their slice: ROADMAP.md item 9), and a profile of a few of its inner
-    solves;
-11. a ``kernels`` line with each kernel's numbers;
-12. the last line, ``{"ok": true, "device": {...}}``.
+7. the probes P3 ``dia_noshift`` and P4 ``dia_roll2d`` (rows 32 to 256)
+   at d=5, n=10^6 in f32, against their plain versions and beside K1
+   f32 at the same shape;
+8. the probe P5 ``dia_spmv_f32`` (K1's f32 kernel) on the g=243 planes,
+   beside K2 mode B;
+9. ``SymEigsSolver`` on the g=100 2-D Laplacian (n = 10^4) with implicit
+   and thick restarts, and a checkpoint round trip;
+10. config #2 as ``bench.py`` runs it (the Chebyshev-filtered IRLM for
+    the 10 largest eigenvalues of the 1M-node 2-D Laplacian), and a
+    profile of its start;
+11. config #3 (``bench.py:106-135``): shift-invert with the multigrid
+    inner solve, k=10 nearest sigma=0 of the 1M-node 2-D Laplacian, as
+    ``bench.py`` runs it (selective re-orthogonalization, restart chunk
+    20) and with full re-orthogonalization;
+12. the north star as ``scripts/tpu_northstar_100m.py:158-174`` runs
+    it: shift-invert with the multigrid inner solve, the stepped driver
+    and ``compute_locked`` for the 20 smallest eigenvalues, counted with
+    multiplicity, of the 3-D 7-point Laplacian at g=243 (100,088,055
+    nonzeros), and a profile of a few of its inner solves;
+13. a ``kernels`` line with each kernel's numbers;
+14. the last line, ``{"ok": true, "device": {...}}``.
 
-Each path (the probe, config #2, config #3, the north star) sets the
+Each path (the probes, config #2, config #3, the north star) sets the
 launch counters to 0 just before it and reads them just after. Any
 failed check raises, so the script exits non-zero and prints no ``ok``
 line. Without a CUDA device it exits with code 2 before any phase. Only
@@ -78,12 +84,30 @@ REPLACES = {
         "scripts/tpu_pallas_stream_probe.py:29",
         "scripts/tpu_pallas_stream_probe.py::scale_pallas",
     ),
+    "dia_noshift": (
+        "scripts/tpu_dia_variants.py:68",
+        "scripts/tpu_dia_variants.py::dia_noshift",
+    ),
+    "dia_roll2d": (
+        "scripts/tpu_dia_variants.py:110",
+        "scripts/tpu_dia_variants.py::dia_roll2d",
+    ),
+    "dia_spmv_f32": (
+        "scripts/tpu_dia_f32_ceiling.py:33",
+        "scripts/tpu_dia_f32_ceiling.py::dia_spmv_f32 (ported by K1's f32 kernel)",
+    ),
 }
 SOURCES = {
     "dia_spmv": "dia_spmv.cu",
     "dia_spmv_ds": "dia_ds.cu",
     "stream_scale": "stream_scale.cu",
+    "dia_noshift": "dia_variants.cu",
+    "dia_roll2d": "dia_variants.cu",
+    "dia_spmv_f32": "dia_spmv.cu",
 }
+ROLL2D_ROWS = (32, 64, 128, 256)
+#: Where the g=100 checkpoint round trip writes its file (gitignored).
+CHECKPOINT_DIR = "build/chip_smoke"
 
 
 def emit(**obj):
@@ -330,26 +354,74 @@ def time_kernel(torch, dmod, pf, rates):
 
 
 def run_irlm(torch, stt, dmod):
-    g = 100
+    """The g=100 IRLM with implicit and thick restarts, and a checkpoint
+    round trip: save after the first segment of ``set_restart_chunk``,
+    load into a fresh solver, finish; it must equal the uninterrupted
+    chunked run bitwise (values and counts)."""
+    import os
+
+    g, chunk = 100, 10
     A = laplacian_2d(g)
     op = stt.SparseSymMatProd.from_full(A)
-    before = dmod.LAUNCHES
-    t0 = time.perf_counter()
-    s = stt.SymEigsSolver(op, nev=6, ncv=30)
-    s.init()
-    nconv = s.compute(stt.SortRule.LargestAlge, maxit=1000, tol=1e-10)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dmod.LAUNCHES - before
-    vals = s.eigenvalues()
-    err = float(np.abs(np.sort(vals) - analytic_2d(g)[-6:]).max())
-    emit(phase="irlm_g100", nconv=nconv, info=s.info().name,
-         iterations=s.num_iterations(), operations=s.num_operations(),
-         launches=launches, wall_s=wall, max_err_vs_analytic=err)
-    if nconv != 6 or s.info() != stt.CompInfo.Successful or err > 1e-9:
-        raise RuntimeError("IRLM on the g=100 Laplacian did not converge")
-    if launches < s.num_operations():
-        raise RuntimeError("the IRLM's SpMVs did not all go through the kernel")
+
+    def solve(label, restart_method="implicit", chunked=False, maxit=1000,
+              resume=None):
+        s = stt.SymEigsSolver(op, nev=6, ncv=30)
+        s.set_restart_method(restart_method)
+        if chunked:
+            s.set_restart_chunk(chunk)
+        s.init()
+        if resume is not None:
+            s.load_checkpoint(resume)
+        before = dmod.LAUNCHES
+        t0 = time.perf_counter()
+        nconv = s.compute(stt.SortRule.LargestAlge, maxit=maxit, tol=1e-10)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dmod.LAUNCHES - before
+        vals = s.eigenvalues()
+        err = float(np.abs(np.sort(vals) - analytic_2d(g)[-6:]).max()) if len(vals) else None
+        emit(phase="irlm_g100", run=label, restart_method=restart_method,
+             nconv=nconv, info=s.info().name, iterations=s.num_iterations(),
+             operations=s.num_operations(), launches=launches, wall_s=wall,
+             max_err_vs_analytic=err)
+        if resume is None and launches < s.num_operations():
+            raise RuntimeError("the IRLM's SpMVs did not all go through the kernel")
+        return s, nconv, vals, err
+
+    implicit, n_i, v_i, err_i = solve("implicit")
+    thick, n_t, v_t, err_t = solve("thick", restart_method="thick")
+    for label, n, err in (("implicit", n_i, err_i), ("thick", n_t, err_t)):
+        if n != 6 or err > 1e-9:
+            raise RuntimeError(f"IRLM ({label}) on the g=100 Laplacian did not converge")
+    thick_diff = float(np.abs(np.sort(v_t) - np.sort(v_i)).max())
+    if n_t != n_i or thick_diff > 1e-12:
+        raise RuntimeError(f"thick and implicit restarts disagree by {thick_diff}")
+
+    whole, _, v_w, _ = solve("chunked", chunked=True)
+    part, _, _, _ = solve("first segment", chunked=True, maxit=chunk)
+    if part.info() != stt.CompInfo.NotConverging:
+        raise RuntimeError("the first segment already converged: no round trip")
+    os.makedirs(CHECKPOINT_DIR, exist_ok=True)
+    path = os.path.join(CHECKPOINT_DIR, "irlm_g100.npz")
+    part.save_checkpoint(path)
+    resumed, n_r, v_r, _ = solve("resumed", chunked=True, resume=path)
+    os.remove(path)
+    same = (
+        np.array_equal(v_r, v_w)
+        and (resumed.num_iterations(), resumed.num_operations())
+        == (whole.num_iterations(), whole.num_operations())
+        and np.array_equal(v_w, v_i)
+        and whole.num_operations() == implicit.num_operations()
+    )
+    emit(phase="irlm_g100_checkpoint", chunk=chunk, bitwise_equal=bool(same),
+         thick_vs_implicit_max_diff=thick_diff,
+         counts=dict(implicit=(implicit.num_iterations(), implicit.num_operations()),
+                     thick=(thick.num_iterations(), thick.num_operations()),
+                     chunked=(whole.num_iterations(), whole.num_operations()),
+                     resumed=(resumed.num_iterations(), resumed.num_operations())))
+    if n_r != 6 or not same:
+        raise RuntimeError("the checkpoint round trip is not bitwise the plain run")
 
 
 def run_main_path(torch, stt, dmod):
@@ -669,10 +741,139 @@ def time_ds(torch, dsmod, dmod, A243, dia, hilo, rates, stream_gbs):
     return out
 
 
+def timed_entry(timer, fn, plain, library, bytes_moved, ops, rate, bandwidth):
+    """Cold times of a kernel, its plain version and a library call
+    (None: no single PyTorch call computes the function), with the bound
+    from the bytes the function must move and the operations it does."""
+    ms = timer.cold(fn)
+    t_bytes, t_ops = bytes_moved / bandwidth, ops / rate
+    return dict(
+        ms=ms, plain_ms=timer.cold(plain),
+        library_ms=None if library is None else timer.cold(library),
+        bound_ms=max(t_bytes, t_ops) * 1e3,
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bytes=bytes_moved, fraction_of_bound=max(t_bytes, t_ops) * 1e3 / ms,
+    )
+
+
+def phase_dia_variants(torch, vmod, dmod, pf, rates):
+    """P3 ``dia_noshift`` and P4 ``dia_roll2d`` at the probe's shape, the
+    g=1000 2-D Laplacian in f32 (d=5, n=10^6), bitwise against their
+    plain versions, then timed as K1 is (L2 flushed, CUDA events, median
+    of 40) beside their bound, their plain version, K1 f32 at the same
+    shape and one ``torch.sparse`` CSR f32 product (P4's library time;
+    no single PyTorch call computes P3's wrong-on-purpose function). The
+    launch counters are set to 0 after the comparisons and read after
+    the timing."""
+    bandwidth, _, f32_rate = rates
+    timer = Timer(torch)
+    A = laplacian_2d(G_FULL)
+    m = pf.dia_from_scipy(A, dtype=torch.float32)
+    data, offs, n = m.data, m.offsets, m.n_rows
+    x = torch.randn(n, dtype=torch.float32, device="cuda")
+    csr = torch_csr(torch, A, np.float32)
+    d = len(offs)
+    checks = {"dia_noshift": (vmod.dia_noshift(data, offs, x),
+                              vmod.dia_noshift_plain(data, x))}
+    k1_plain = dmod.dia_spmv_plain(data, offs, x, n)
+    for rows in ROLL2D_ROWS:
+        y = vmod.dia_roll2d(data, offs, x, rows=rows)
+        checks[f"dia_roll2d_r{rows}"] = (y, vmod.dia_roll2d_plain(data, offs, x, rows))
+        if not torch.equal(y, k1_plain):
+            raise RuntimeError(f"dia_roll2d rows={rows} is not K1's product")
+    errs = {}
+    for label, (y, ref) in checks.items():
+        errs[label] = float((y - ref).abs().max())
+        bitwise = bool(torch.equal(y, ref))
+        kernel = "dia_roll2d" if label.startswith("dia_roll2d") else label
+        emit(phase="kernel_vs_plain", kernel=kernel, case=label,
+             d=d, n=n, max_abs_err=errs[label], bitwise_equal=bitwise, ok=bitwise)
+        if not bitwise:
+            raise RuntimeError(f"{label} disagrees with its plain version")
+    del checks, k1_plain
+    terms = sum(n - abs(o) for o in offs)
+    bytes_moved = (d + 2) * 4 * n
+    torch.cuda.synchronize()
+    vmod.LAUNCHES.update(dia_noshift=0, dia_roll2d=0)
+    out = {"k1_f32": timed_entry(
+        timer, lambda: dmod.dia_spmv(data, offs, x, n),
+        lambda: dmod.dia_spmv_plain(data, offs, x, n), lambda: csr @ x,
+        bytes_moved, 2 * terms, f32_rate, bandwidth,
+    )}
+    out["dia_noshift"] = timed_entry(
+        timer, lambda: vmod.dia_noshift(data, offs, x),
+        lambda: vmod.dia_noshift_plain(data, x), None,
+        bytes_moved, 2 * d * n, f32_rate, bandwidth,
+    )
+    for rows in ROLL2D_ROWS:
+        out[f"dia_roll2d_r{rows}"] = timed_entry(
+            timer, lambda rows=rows: vmod.dia_roll2d(data, offs, x, rows=rows),
+            lambda rows=rows: vmod.dia_roll2d_plain(data, offs, x, rows),
+            lambda: csr @ x, bytes_moved, 2 * terms, f32_rate, bandwidth,
+        )
+        out[f"dia_roll2d_r{rows}"].update(
+            rows=rows, shared_bytes=vmod.window_bytes(offs, rows)
+        )
+    torch.cuda.synchronize()
+    launches = dict(vmod.LAUNCHES)
+    for label, t in out.items():
+        emit(phase="dia_variants_timing", kernel=label, d=d, n=n,
+             k1_f32_ms=out["k1_f32"]["ms"], **t)
+    best = min(ROLL2D_ROWS, key=lambda r: out[f"dia_roll2d_r{r}"]["ms"])
+    return out, errs, launches, best
+
+
+def phase_f32_ceiling(torch, vmod, dmod, pf, A243, rates, ds_t):
+    """P5 ``dia_spmv_f32``, K1's f32 kernel, on the g=243 planes (d=7,
+    n=14,348,907) beside K2 mode B: does K2 take twice P5's time for
+    twice P5's bytes (bound by bytes) or more (bound by its f32
+    arithmetic)? Bitwise against its plain version, then timed with its
+    bound, plain version and a ``torch.sparse`` CSR f32 product. K1's
+    counter is set to 0 after the comparison and read after the
+    timing."""
+    bandwidth, _, f32_rate = rates
+    timer = Timer(torch)
+    m = pf.dia_from_scipy(A243, dtype=torch.float32)
+    data, offs, n = m.data, m.offsets, m.n_rows
+    x = torch.randn(n, dtype=torch.float32, device="cuda")
+    y = vmod.dia_spmv_f32(data, offs, x)
+    ref = vmod.dia_spmv_f32_plain(data, offs, x)
+    err = float((y - ref).abs().max())
+    bitwise = bool(torch.equal(y, ref))
+    emit(phase="kernel_vs_plain", kernel="dia_spmv_f32", case="laplacian_3d_g243",
+         d=len(offs), n=n, max_abs_err=err, bitwise_equal=bitwise, ok=bitwise)
+    if not bitwise:
+        raise RuntimeError("dia_spmv_f32 disagrees with its plain version")
+    del y, ref
+    csr = torch_csr(torch, A243, np.float32)
+    terms = sum(n - abs(o) for o in offs)
+    torch.cuda.synchronize()
+    dmod.LAUNCHES = 0
+    t = timed_entry(
+        timer, lambda: vmod.dia_spmv_f32(data, offs, x),
+        lambda: vmod.dia_spmv_f32_plain(data, offs, x), lambda: csr @ x,
+        (len(offs) + 2) * 4 * n, 2 * terms, f32_rate, bandwidth,
+    )
+    torch.cuda.synchronize()
+    launches = dmod.LAUNCHES
+    b = ds_t["B_k2_resident_planes"]
+    t.update(k2_mode_b_ms=b["ms"], k2_mode_b_bytes=b["bytes"],
+             k2_over_p5_time=b["ms"] / t["ms"], k2_over_p5_bytes=b["bytes"] / t["bytes"])
+    emit(phase="f32_ceiling", kernel="dia_spmv_f32", d=len(offs), n=n, **t)
+    del csr, data, x, m
+    torch.cuda.empty_cache()
+    return t, err, launches
+
+
 def run_config3(torch, stt, dmod, dsmod, pmg, pf):
     """Config #3 (``bench.py:106-135``): k=10 nearest sigma=0 of the
     1M-node 2-D Laplacian by shift-invert with the multigrid inner
-    solve. Every level is below the hi/lo threshold: all K1, no K2."""
+    solve. Every level is below the hi/lo threshold: all K1, no K2. Two
+    solves on one built operator: with full re-orthogonalization (the
+    first, whose counts include the build's trial solve), then as
+    ``bench.py`` runs it, ``set_restart_chunk(20)``,
+    ``set_reorth("selective")``, maxit 200. Returns K1's launches of the
+    selective run (the path as specified)."""
     from spectra_tpu_torch.util.rng import SimpleRandom
 
     A = laplacian_2d(G_FULL)
@@ -684,39 +885,68 @@ def run_config3(torch, stt, dmod, dsmod, pmg, pf):
     op = stt.SparseSymShiftSolve.create(A, method="mg").set_shift(0.0)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    e = stt.SymEigsShiftSolver.from_factored(op, 10, 30, 0.0)
-    e.init(v0)
-    nconv = e.compute(stt.SortRule.LargestMagn, maxit=50, tol=1e-10)
-    torch.cuda.synchronize()
-    solve_s = time.perf_counter() - t0
-    k1, k2 = dmod.LAUNCHES, dsmod.LAUNCHES
-    cycles, solves = pmg.CYCLES, pmg.SOLVES
-    vals = np.sort(e.eigenvalues())
-    err = float(np.abs(vals - analytic_2d(G_FULL)[: len(vals)]).max()) if len(vals) else None
     levels = [type(o).__name__ for o in op.mg.ops]
-    expected_k1 = expected_launches(op.mg, pf.DiaMatrix, cycles, solves)
-    emit(phase="config3_shift_invert_g1000", nconv=nconv, info=e.info().name,
-         restarts=e.num_iterations(), operations=e.num_operations(),
-         inner_solves=solves, v_cycles=cycles, k1_launches=k1,
-         expected_k1_launches=expected_k1, k2_launches=k2, levels=levels,
-         build_s=build_s, build_parts_s=op.build_s, solve_s=solve_s,
-         max_err_vs_analytic=err)
-    if nconv != 10 or e.info() != stt.CompInfo.Successful or err > 1e-9:
-        raise RuntimeError("config #3 did not converge to the analytic spectrum")
     if not all(isinstance(o, pf.DiaMatrix) for o in op.mg.ops):
         raise RuntimeError("a config #3 level is not a DiaMatrix")
     if op.shifted is not op.mg.ops[0]:
         raise RuntimeError("the operator and MG level 0 are not one matrix")
-    if k2 != 0 or k1 != expected_k1:
-        raise RuntimeError(f"config #3: K1 {k1} (expected {expected_k1}), K2 {k2}")
-    return k1
+    runs = {}
+    for label, reorth, chunk, maxit in (
+        ("full", "full", None, 50), ("selective_chunk20", "selective", 20, 200)
+    ):
+        if label != "full":
+            torch.cuda.synchronize()
+            dmod.LAUNCHES = dsmod.LAUNCHES = 0
+            pmg.CYCLES = pmg.SOLVES = 0
+        t0 = time.perf_counter()
+        e = stt.SymEigsShiftSolver.from_factored(op, 10, 30, 0.0)
+        e.set_restart_chunk(chunk)
+        e.set_reorth(reorth)
+        e.init(v0)
+        nconv = e.compute(stt.SortRule.LargestMagn, maxit=maxit, tol=1e-10)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        k1, k2 = dmod.LAUNCHES, dsmod.LAUNCHES
+        cycles, solves = pmg.CYCLES, pmg.SOLVES
+        vals = np.sort(e.eigenvalues())
+        err = float(np.abs(vals - analytic_2d(G_FULL)[: len(vals)]).max()) if len(vals) else None
+        expected_k1 = expected_launches(op.mg, pf.DiaMatrix, cycles, solves)
+        emit(phase="config3_shift_invert_g1000", run=label, reorth=reorth,
+             restart_chunk=chunk, maxit=maxit, nconv=nconv, info=e.info().name,
+             restarts=e.num_iterations(), operations=e.num_operations(),
+             inner_solves=solves, v_cycles=cycles, k1_launches=k1,
+             expected_k1_launches=expected_k1, k2_launches=k2, levels=levels,
+             build_s=build_s, build_parts_s=op.build_s, solve_s=solve_s,
+             max_err_vs_analytic=err, history=e.convergence_history())
+        if nconv != 10 or e.info() != stt.CompInfo.Successful or err > 1e-9:
+            raise RuntimeError(f"config #3 ({label}) did not reach the analytic spectrum")
+        if k2 != 0 or k1 != expected_k1:
+            raise RuntimeError(
+                f"config #3 ({label}): K1 {k1} (expected {expected_k1}), K2 {k2}"
+            )
+        runs[label] = (vals, k1, solve_s, e.num_iterations(), e.num_operations())
+    diff = float(np.abs(runs["full"][0] - runs["selective_chunk20"][0]).max())
+    emit(phase="config3_selective_vs_full", max_abs_diff=diff,
+         solve_s=dict(full=runs["full"][2], selective=runs["selective_chunk20"][2]),
+         restarts_operations=dict(full=runs["full"][3:],
+                                  selective=runs["selective_chunk20"][3:]))
+    if diff > 1e-12:
+        raise RuntimeError(f"config #3 selective and full disagree by {diff}")
+    return runs["selective_chunk20"][1], runs["full"][1]
 
 
 def run_north_star(torch, stt, dmod, dsmod, pmg, pf, A, dia64, matrix_s):
-    """The north star at full width: k=20 nearest sigma=0 of the 3-D
-    g=243 Laplacian, multigrid inner solve, ncv=40, plain compute.
-    Returns the operator and the K1/K2 launches of the run."""
+    """The north star at full width as ``scripts/tpu_northstar_100m.py:
+    158-174`` runs it: the 20 smallest eigenvalues, counted with
+    multiplicity, of the 3-D g=243 Laplacian by shift-invert (sigma=0)
+    with the multigrid inner solve, ``set_matvec_granularity(True)``,
+    then ``compute_locked(LargestMagn, maxit=60, tol=1e-10,
+    sorting=SmallestAlge, want=SmallestAlge, max_rounds=3)``. ncv=40 and
+    ``ncv_locked=None``: the script's ncv=32 and ``ncv_locked=24`` were
+    cuts for a 16 GB TPU (``:137-143``, ``:170-173``), and the card has
+    80 GB. Round 0 is the plain ``compute`` of the same solver, so the
+    plain path stays driven; its counts are reported apart. Returns the
+    operator and the K1/K2 launches of the run."""
     from spectra_tpu_torch.util.rng import SimpleRandom
 
     n = A.shape[0]
@@ -736,9 +966,13 @@ def run_north_star(torch, stt, dmod, dsmod, pmg, pf, A, dia64, matrix_s):
     build_cycles, build_solves = pmg.CYCLES, pmg.SOLVES
     t0 = time.perf_counter()
     e = stt.SymEigsShiftSolver.from_factored(op, 20, 40, 0.0)
+    e.set_matvec_granularity(True)
     e.init(v0)
-    nconv = e.compute(stt.SortRule.LargestMagn, maxit=60, tol=1e-10,
-                      sorting=stt.SortRule.SmallestAlge)
+    nconv = e.compute_locked(
+        stt.SortRule.LargestMagn, maxit=60, tol=1e-10,
+        sorting=stt.SortRule.SmallestAlge, want=stt.SortRule.SmallestAlge,
+        max_rounds=3,
+    )
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
     k1, k2 = dmod.LAUNCHES, dsmod.LAUNCHES
@@ -759,8 +993,15 @@ def run_north_star(torch, stt, dmod, dsmod, pmg, pf, A, dia64, matrix_s):
     rel_res = (torch.linalg.vector_norm(R, dim=0) / lam_t.abs()).cpu().numpy()
     del vecs, R
     levels = [type(o).__name__ for o in mg.ops]
+    rounds = e.locking_rounds()
+    captured = prefix_captured(vals, lam)
+    # Round 0 is the plain compute: its multiplicity-counted prefix is
+    # what plain compute alone would have delivered.
+    round_vals = [r.pop("values") for r in rounds]
+    rounds[0]["prefix_captured"] = prefix_captured(round_vals[0], lam)
     emit(phase="north_star_g243", n=n, nnz=int(A.nnz), nconv=nconv,
-         info=e.info().name, restarts=e.num_iterations(),
+         info=e.info().name, certified=e.certified(), rounds=len(rounds),
+         per_round=rounds, round0=rounds[0], restarts=e.num_iterations(),
          operations=e.num_operations(), inner_solves=solves, v_cycles=cycles,
          build_inner_solves=build_solves, build_v_cycles=build_cycles,
          k2_launches=k2, expected_k2_launches=expected_k2, k1_launches=k1,
@@ -769,13 +1010,20 @@ def run_north_star(torch, stt, dmod, dsmod, pmg, pf, A, dia64, matrix_s):
          host_build_s=dict(matrix=matrix_s, create_symmetrize=create_s,
                            **op.build_s, set_shift_total=set_shift_s),
          solve_s=solve_s, max_memory_allocated=peak,
-         max_dist_to_analytic=max(dist), max_rel_residual=float(rel_res.max()),
-         prefix_captured=prefix_captured(vals, lam), eigenvalues=vals.tolist(),
+         max_dist_to_analytic=max(dist),
+         max_err_vs_smallest_20=float(np.abs(np.sort(vals) - lam[:20]).max()),
+         max_rel_residual=float(rel_res.max()),
+         prefix_captured=captured, eigenvalues=vals.tolist(),
          V_device=str(res.V.device))
     if nconv != 20 or e.info() != stt.CompInfo.Successful:
         raise RuntimeError("the north star did not converge 20/20")
-    if max(dist) > 1e-9:
-        raise RuntimeError("a north-star eigenvalue is not an analytic one")
+    if not e.certified() or captured != 20:
+        raise RuntimeError(
+            f"the north star is not certified (certified={e.certified()}, "
+            f"prefix {captured} of 20)"
+        )
+    if max(dist) > 1e-9 or np.abs(np.sort(vals) - lam[:20]).max() > 1e-9:
+        raise RuntimeError("the north star's values are not the 20 smallest")
     if rel_res.max() > 1e-8:
         raise RuntimeError("a north-star eigenpair residual exceeds 1e-8")
     if not (isinstance(mg.ops[0], pf.DiaHiLoMatrix) and isinstance(mg.ops[1], pf.DiaHiLoMatrix)
@@ -839,6 +1087,7 @@ def main():
     from spectra_tpu_torch.linalg import multigrid as pmg
     from spectra_tpu_torch.ops import dia_ds as dsmod
     from spectra_tpu_torch.ops import dia_spmv as dmod
+    from spectra_tpu_torch.ops import dia_variants as vmod
     from spectra_tpu_torch.ops import stream as smod
     from spectra_tpu_torch.sparse import formats as pf
 
@@ -870,11 +1119,19 @@ def main():
                  hilo243, rates, stream_t["gb_s"])
     del hilo243
     torch.cuda.empty_cache()
+    var_t, var_errs, var_launches, best_rows = phase(
+        "dia_variants", phase_dia_variants, torch, vmod, dmod, pf, rates
+    )
+    p5_t, p5_err, p5_launches = phase(
+        "f32_ceiling", phase_f32_ceiling, torch, vmod, dmod, pf, A243, rates, ds_t
+    )
     phase("irlm_g100", run_irlm, torch, stt, dmod)
     launches, op, v0 = phase("config2_main_path", run_main_path, torch, stt, dmod)
     phase("config2_profile", profile_start, torch, stt, op, v0)
     del op, v0
-    k1_config3 = phase("config3", run_config3, torch, stt, dmod, dsmod, pmg, pf)
+    k1_config3, k1_config3_full = phase(
+        "config3", run_config3, torch, stt, dmod, dsmod, pmg, pf
+    )
     ns_op, k1_ns, k2_ns = phase(
         "north_star", run_north_star, torch, stt, dmod, dsmod, pmg, pf, A243,
         dia243, matrix_s,
@@ -890,6 +1147,7 @@ def main():
             f"d={f64['d']}, n={f64['n']}, float64 (config #2)",
             max_err=worst_k1, float32=timing["float32"],
             launches_config2=launches, launches_config3=k1_config3,
+            launches_config3_full_reorth=k1_config3_full,
             launches_north_star=k1_ns,
         ),
         kernel_entry(
@@ -902,6 +1160,27 @@ def main():
             stream_t, "n=2^28, float32",
             gb_s=stream_t["gb_s"], datasheet_gb_s=stream_t["datasheet_gb_s"],
             launches_path="the stream-probe phase (a probe, on no solver path)",
+        ),
+        kernel_entry(
+            "dia_noshift", var_launches["dia_noshift"], var_errs["dia_noshift"],
+            var_t["dia_noshift"], "d=5, n=10^6, float32 (g=1000 2-D Laplacian)",
+            k1_f32_ms=var_t["k1_f32"]["ms"],
+            launches_path="the dia_variants phase (a probe, on no solver path)",
+        ),
+        kernel_entry(
+            "dia_roll2d", var_launches["dia_roll2d"],
+            max(v for k, v in var_errs.items() if k.startswith("dia_roll2d")),
+            var_t[f"dia_roll2d_r{best_rows}"],
+            f"d=5, n=10^6, float32, rows={best_rows} (the fastest of {list(ROLL2D_ROWS)})",
+            rows_sweep={r: var_t[f"dia_roll2d_r{r}"] for r in ROLL2D_ROWS},
+            k1_f32_ms=var_t["k1_f32"]["ms"],
+            launches_path="the dia_variants phase (a probe, on no solver path)",
+        ),
+        kernel_entry(
+            "dia_spmv_f32", p5_launches, p5_err, p5_t,
+            f"d=7, n={G_NORTH ** 3}, float32 (g=243 planes)",
+            k2_mode_b_ms=p5_t["k2_mode_b_ms"],
+            launches_path="the f32_ceiling phase (K1's f32 kernel as the probe)",
         ),
     ])
     emit(phase_walls=walls, total_s=sum(walls.values()))

@@ -40,7 +40,7 @@ import warnings
 import numpy as np
 import torch
 
-from spectra_tpu_torch.matop.arnoldi_op import ArnoldiOp
+from spectra_tpu_torch.matop.arnoldi_op import ArnoldiOp, LockedArnoldiOp
 from spectra_tpu_torch.ops.gemv import vec_dot
 from spectra_tpu_torch.sparse.formats import symmetrize_scipy
 from spectra_tpu_torch.util.capabilities import resolve_device
@@ -65,13 +65,17 @@ def coupled_inner_rtol(outer_tol: float, work_dtype) -> float:
 
 
 def couple_inner_tolerance(obj, outer_tol: float):
-    """``obj`` (a shift-solve operator, or an :class:`ArnoldiOp` around
-    one) rebuilt with :func:`coupled_inner_rtol` of ``outer_tol`` when it
-    is an iterative solve whose inner tolerance the user did not pin;
-    any other operator is returned as it is. The solver drivers call it
-    on every ``compute``: a stale loose coupling from an earlier
-    ``compute(tol=coarse)`` would converge on a perturbed operator and
-    report ``Successful`` with wrong eigenvalues."""
+    """``obj`` (a shift-solve operator, or an :class:`ArnoldiOp` or
+    :class:`LockedArnoldiOp` around one) rebuilt with
+    :func:`coupled_inner_rtol` of ``outer_tol`` when it is an iterative
+    solve whose inner tolerance the user did not pin; any other operator
+    is returned as it is. The solver drivers call it on every
+    ``compute``, locked rounds included: a stale loose coupling from an
+    earlier ``compute(tol=coarse)`` would converge on a perturbed
+    operator and report ``Successful`` with wrong eigenvalues."""
+    if isinstance(obj, LockedArnoldiOp):
+        inner = couple_inner_tolerance(obj.inner, outer_tol)
+        return obj if inner is obj.inner else LockedArnoldiOp(inner, obj.locked)
     if isinstance(obj, ArnoldiOp):
         op = couple_inner_tolerance(obj.op, outer_tol)
         return obj if op is obj.op else ArnoldiOp(op)

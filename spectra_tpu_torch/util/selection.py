@@ -77,3 +77,10 @@ def argsort(selection: SortRule, values: torch.Tensor) -> torch.Tensor:
 def argsort_np(selection: SortRule, values) -> np.ndarray:
     """Numpy twin of :func:`argsort` for host-side result arrays."""
     return argsort(selection, torch.from_numpy(np.asarray(values))).numpy()
+
+
+def sort_key_np(selection: SortRule, values) -> np.ndarray:
+    """Numpy twin of :func:`sort_target`: the scalar ascending-sort key,
+    smaller == more wanted (reference: Util/SelectionRule.h:68-185); the
+    frontier test of ``compute_locked`` ranks by it."""
+    return sort_target(selection, torch.from_numpy(np.asarray(values))).numpy()

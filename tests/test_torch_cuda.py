@@ -12,6 +12,7 @@ import torch
 
 from spectra_tpu_torch.ops import dia_ds as dsmod
 from spectra_tpu_torch.ops import dia_spmv as dmod
+from spectra_tpu_torch.ops import dia_variants as dv
 from spectra_tpu_torch.ops import stream
 from spectra_tpu_torch.sparse import formats as pf
 
@@ -122,3 +123,46 @@ def test_stream_probe_matches_plain_on_card(cuda):
         torch.cuda.synchronize()
         assert stream.LAUNCHES == before + 1
         assert torch.equal(y, x * 2)
+
+
+@pytest.mark.cuda
+def test_dia_probes_match_plain_on_card(cuda):
+    """The two probe kernels of ``csrc/dia_variants.cu`` against their
+    plain versions (bitwise: every step a separately rounded f32
+    operation), ``dia_roll2d`` also against K1's plain version, at every
+    ``rows`` the chip run times; ``dia_spmv_f32`` is K1's f32 kernel."""
+    g = 100
+    lap1 = sps.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(g, g))
+    lap = (sps.kron(sps.eye(g), lap1) + sps.kron(lap1, sps.eye(g))).tocsr()
+    rng = np.random.default_rng(13)
+    wide = (-700, -129, -128, -1, 0, 3, 128, 300)
+    band = sps.diags(
+        [rng.normal(size=9001) for _ in wide], wide, shape=(9001, 9001)
+    ).tocsr()
+    for A in (lap, band):
+        m = pf.dia_from_scipy(A, dtype=torch.float32, device="cuda")
+        x = torch.randn(A.shape[0], dtype=torch.float32, device="cuda")
+        ref = dmod.dia_spmv_plain(m.data, m.offsets, x, m.n_cols)
+        before = dict(dv.LAUNCHES)
+        y = dv.dia_noshift(m.data, m.offsets, x)
+        assert torch.equal(y, dv.dia_noshift_plain(m.data, x))
+        for rows in (32, 64, 128, 256):
+            y = dv.dia_roll2d(m.data, m.offsets, x, rows=rows)
+            assert torch.equal(y, dv.dia_roll2d_plain(m.data, m.offsets, x, rows))
+            assert torch.equal(y, ref)
+        k1_before = dmod.LAUNCHES
+        assert torch.equal(dv.dia_spmv_f32(m.data, m.offsets, x), ref)
+        torch.cuda.synchronize()
+        assert dmod.LAUNCHES == k1_before + 1
+        assert dv.LAUNCHES["dia_noshift"] == before["dia_noshift"] + 1
+        assert dv.LAUNCHES["dia_roll2d"] == before["dia_roll2d"] + 4
+
+
+@pytest.mark.cuda
+def test_dia_probes_raise_for_what_they_do_not_take(cuda):
+    data = torch.ones((5, 4096), dtype=torch.float64, device="cuda")
+    offs = (-1000, -1, 0, 1, 1000)
+    with pytest.raises(TypeError):
+        dv.dia_roll2d(data, offs, torch.ones(4096, dtype=torch.float64, device="cuda"))
+    with pytest.raises(ValueError):
+        dv.dia_roll2d(data.float(), offs, torch.ones(4096, device="cuda"), rows=512)

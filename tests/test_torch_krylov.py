@@ -221,9 +221,53 @@ def test_givens_matches_jax(x, y):
 
 
 def test_other_modes_wait_for_their_slice(ops):
+    """The Arnoldi factorization of the general solvers waits for its
+    slice; the selective mode and the single full-projection step (the
+    thick restart's arrow column) are in."""
     _, pop, v0 = ops
     state = pkry.init(pop, torch.from_numpy(v0), 5)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 9"):
-        pkry.factorize_from(pop, state, 1, "lanczos_selective")
     with pytest.raises(NotImplementedError, match="ROADMAP.md item 12"):
         pkry.factorize_from(pop, state, 1, "arnoldi")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item 12"):
+        pkry.step_once(pop, state, 1, "lanczos_selective")
+    state = pkry.factorize_from(pop, state, 1, "lanczos_selective")
+    assert state.k == 5
+
+
+def test_selective_factorize_matches_jax(ops):
+    """Simon's omega recurrence from the same init: H, V and the operator
+    count as in the JAX package, and fewer DGKS projections than steps."""
+    jop, pop, v0 = ops
+    js = jkry.init(jop, jnp.asarray(v0), 20, jax.random.PRNGKey(0))
+    js = jkry.factorize_from(jop, js, 1, "lanczos_selective")
+    ps = pkry.init(pop, torch.from_numpy(v0), 20)
+    ps = pkry.factorize_from(pop, ps, 1, "lanczos_selective")
+    assert ps.k == int(js.k) == 20 and ps.nops == int(js.nops)
+    np.testing.assert_allclose(ps.H.numpy(), np.asarray(js.H), atol=1e-12)
+    np.testing.assert_allclose(ps.V.numpy(), np.asarray(js.V), atol=1e-10)
+    G = (ps.V @ ps.V.T).numpy()
+    assert np.abs(G - np.eye(20)).max() < 1e-7  # semiorthogonal
+
+
+def test_thick_compress_matches_jax(ops, jax_start):
+    """The thick restart's collapse and arrow column from one JAX state:
+    the same arrowhead H (up to the signs of the eigenvectors, which the
+    two eigensolvers choose freely) and the same restarted subspace."""
+    jop, pop, _ = ops
+    carry, k_new, _, _ = jax_start
+    want = jcore._restart_thick_compress(
+        jop, carry.state, k_new, 20, st.SortRule.LargestAlge
+    )
+    got = pcore._restart_thick_compress(
+        pop, _port_state(carry.state), k_new, psel.SortRule.LargestAlge
+    )
+    assert got.k == int(want.k) == k_new + 1 and got.nops == int(want.nops)
+    Hj, Hp = np.asarray(want.H), got.H.numpy()
+    np.testing.assert_allclose(np.abs(Hp), np.abs(Hj), atol=1e-11)
+    np.testing.assert_allclose(
+        np.linalg.eigvalsh(Hp[: k_new + 1, : k_new + 1]),
+        np.linalg.eigvalsh(Hj[: k_new + 1, : k_new + 1]), atol=1e-11,
+    )
+    Vj, Vp = np.asarray(want.V), got.V.numpy()
+    np.testing.assert_allclose(Vp.T @ Vp, Vj.T @ Vj, atol=1e-10)
+    assert torch.count_nonzero(got.V[k_new + 1:]) == 0

@@ -7,10 +7,11 @@ Tolerances: each ``perform_op`` meets ``tests/test_shift_solve.py``'s
 bar (residual within 1e-9) and agrees with the JAX package's solution
 within 1e-9 relative (both solve to the coupled inner tolerance 1e-12;
 SuperLU is the same scipy call and agrees bitwise). Eigenvalues agree
-within 1e-10. Restart and operation counts are equal: on the
-anisotropic grid (simple eigenvalues) for every method, and in these
-runs also on the g=24 3-D north-star shape, whose spectrum has
-multiplicities (where rounding could move them, ROADMAP.md section 3).
+within 1e-10. Restart and operation counts are equal on the anisotropic
+grid (simple eigenvalues) for every method. On the 3-D north-star shape,
+whose spectrum has multiplicities, plain ``compute`` is held only to
+what it guarantees (ROADMAP.md section 3), and ``compute_locked`` to
+the complete multiset.
 """
 
 import warnings
@@ -185,11 +186,24 @@ def test_shift_invert_anisotropic_matches_jax(method):
     assert np.abs(A @ vecs - vecs * vals[None, :]).max() < 1e-9
 
 
+def _lap3d_eigs(g):
+    mu = 4 * np.sin(np.pi * np.arange(1, g + 1) / (2 * (g + 1))) ** 2
+    return np.sort((mu[:, None, None] + mu[None, :, None] + mu[None, None, :]).ravel())
+
+
 def test_north_star_shape_g24_matches_jax():
     """The north star's shape at g=24 (n = 13,824): k=20, ncv=40, sigma=0,
-    multigrid, plain ``compute``. nconv, info and eigenvalues agree with
-    the JAX package (1e-10), and so do the counts (11 restarts, 143
-    operations in both)."""
+    multigrid, plain ``compute``. Each package is held only to what plain
+    ``compute`` guarantees: 20 converged values, ``Successful``, sorted,
+    each within 1e-9 of an analytic eigenvalue, and every port value
+    within 1e-10 of some JAX value. Not to equal arrays or equal counts:
+    this spectrum has multiplicities, and which copies of a repeated
+    eigenvalue one Krylov sequence catches is decided by rounding
+    (ROADMAP.md section 3), so the two packages may keep different copies
+    (on one machine the port kept 5, 3, 1 copies of the 6-fold 0.219051,
+    the 3-fold 0.266114 and 0.278928 where the JAX package kept 4, 3, 2).
+    ``test_north_star_shape_locked_matches_jax``
+    (``tests/test_torch_locking.py``) holds both to the complete multiset."""
     g = 24
     A = lap3d(g)
     v0 = SimpleRandom(0).random_vec(g**3)
@@ -205,14 +219,29 @@ def test_north_star_shape_g24_matches_jax():
     pn = ps.compute(stt.SortRule.LargestMagn, sorting=stt.SortRule.SmallestAlge, **kw)
     assert pn == jn == 20
     assert ps.info().name == js.info().name == "Successful"
-    vals = ps.eigenvalues()
-    assert np.all(np.diff(vals) >= 0)
-    np.testing.assert_allclose(vals, np.asarray(js.eigenvalues()), rtol=0, atol=1e-10)
-    mu = 4 * np.sin(np.pi * np.arange(1, g + 1) / (2 * (g + 1))) ** 2
-    lam = (mu[:, None, None] + mu[None, :, None] + mu[None, None, :]).ravel()
-    assert max(np.abs(lam - v).min() for v in vals) < 1e-9
-    assert (ps.num_iterations(), ps.num_operations()) == (11, 143)
-    assert (js.num_iterations(), js.num_operations()) == (11, 143)
+    lam = _lap3d_eigs(g)
+    pv, jv = ps.eigenvalues(), np.asarray(js.eigenvalues())
+    for vals in (pv, jv):
+        assert np.all(np.diff(vals) >= 0)
+        assert max(np.abs(lam - v).min() for v in vals) < 1e-9
+    assert max(np.abs(jv - v).min() for v in pv) < 1e-10
+
+
+def test_locked_rounds_couple_inner_tolerance():
+    """A shift-solve inside a ``LockedArnoldiOp`` gets the coupled inner
+    tolerance too, so locked rounds do not solve at a stale one."""
+    from spectra_tpu_torch.matop.arnoldi_op import ArnoldiOp, LockedArnoldiOp
+
+    op = stt.SparseSymShiftSolve.create(lap2d(8), method="cg", device="cpu").set_shift(0.0)
+    blk = torch.zeros((1, 64), dtype=torch.float64)
+    blk[0, 0] = 1.0
+    locked = LockedArnoldiOp(ArnoldiOp(op), (blk,))
+    coupled = couple_inner_tolerance(locked, 1e-6)
+    assert isinstance(coupled, LockedArnoldiOp) and coupled.locked == locked.locked
+    assert coupled.inner.op.inner_rtol == coupled_inner_rtol(1e-6, torch.float64)
+    assert locked.inner.op.inner_rtol is None
+    pinned = LockedArnoldiOp(ArnoldiOp(op.with_inner_rtol(1e-9)), (blk,))
+    assert couple_inner_tolerance(pinned, 1e-6) is pinned
 
 
 def test_sorting_and_shift_of_back_transformed():

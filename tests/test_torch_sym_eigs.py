@@ -215,15 +215,20 @@ def test_solver_api_checks():
     with pytest.raises(ValueError):
         s.init(np.ones(5))
     for call, item in [
-        (lambda: s.set_restart_method("thick"), "item 9"),
-        (lambda: s.set_reorth("selective"), "item 9"),
         (lambda: s.set_precision("mixed"), "item 16"),
-        (lambda: s.set_matvec_granularity(), "item 9"),
-        (lambda: s.compute_locked(), "item 9"),
         (lambda: stt.SymEigsSolver(op, nev=3, ncv=10, bop=op), "item 13"),
     ]:
         with pytest.raises(NotImplementedError, match=item):
             call()
+    for call in (lambda: s.set_restart_method("qr"), lambda: s.set_reorth("some"),
+                 lambda: s.set_precision("half")):
+        with pytest.raises(ValueError):
+            call()
+    with pytest.raises(RuntimeError, match="no iteration state"):
+        s.save_checkpoint("unused.npz")
+    s.set_restart_method("thick")
+    s.set_reorth("selective")
+    s.set_matvec_granularity(False)
     s.set_restart_method("implicit")
     s.set_reorth("full")
     s.set_precision("double")
@@ -234,3 +239,166 @@ def test_solver_api_checks():
         jnp.asarray(s.eigenvalues()), jnp.asarray(_wanted("AN30", "Largest", 3)),
         atol=1e-10,
     )
+
+
+# -- thick restart, the stepped driver and checkpoints -------------------
+#
+# The cases of tests/test_sym_eigs.py:160-252, :254-325 and :356-420 on
+# sparse operators (the dense ones wait for matop/dense.py): AN30, whose
+# wanted eigenvalues are simple, so restarts and operations equal the JAX
+# package's; the port's stepped and resumed runs are bitwise its own
+# plain run.
+
+
+def _driver(pkg, A, nev=6, ncv=12, rule="LargestMagn", restart="implicit",
+            chunk=None, stepped=False, maxit=1000, resume=None, v0=None, tol=1e-10):
+    mod = st if pkg == "jax" else stt
+    kw = {} if pkg == "jax" else dict(device="cpu")
+    s = mod.SymEigsSolver(mod.SparseSymMatProd.from_full(A, **kw), nev=nev, ncv=ncv)
+    s.set_restart_method(restart)
+    s.set_restart_chunk(chunk)
+    s.set_matvec_granularity(stepped)
+    s.init(_start() if v0 is None else v0)
+    if resume is not None:
+        s.load_checkpoint(resume)
+    s.compute(getattr(mod.SortRule, rule), maxit=maxit, tol=tol)
+    return s
+
+
+def _same_run(a, b):
+    np.testing.assert_array_equal(a.eigenvalues(), b.eigenvalues())
+    assert torch.equal(a.eigenvectors(), b.eigenvectors())
+    assert (a.num_iterations(), a.num_operations()) == (
+        b.num_iterations(), b.num_operations()
+    )
+
+
+def _counts(s):
+    return s.num_iterations(), s.num_operations()
+
+
+@pytest.mark.parametrize("restart", ["implicit", "thick"])
+def test_matvec_granularity_matches_plain(restart):
+    """The stepped driver replays the plain run: bitwise the same values,
+    vectors and counts, and the JAX package's stepped counts."""
+    A = MATRICES["AN30"][0]
+    plain = _driver("port", A, restart=restart)
+    stepped = _driver("port", A, restart=restart, stepped=True)
+    assert stepped.info() == stt.CompInfo.Successful
+    _same_run(stepped, plain)
+    j = _driver("jax", A, restart=restart, stepped=True)
+    assert _counts(stepped) == _counts(j)
+    np.testing.assert_allclose(stepped.eigenvalues(), np.asarray(j.eigenvalues()),
+                               rtol=0, atol=1e-10)
+    X = stepped.eigenvectors().numpy()
+    assert np.abs(A @ X - X * stepped.eigenvalues()).max() < 1e-9
+
+
+def test_matvec_granularity_shift_invert():
+    """Stepped execution through the sparse shift-invert operator (one
+    inner MINRES solve per operator application), as in the JAX
+    package."""
+    g = 30
+    lap1 = _lap1(g)
+    A = (sps.kron(sps.eye(g), lap1) + 1.37 * sps.kron(lap1, sps.eye(g))).tocsr()
+    v0 = SimpleRandom(0).random_vec(g * g)
+    out = {}
+    for pkg, mod, kw in (("port", stt, dict(device="cpu")), ("jax", st, {})):
+        op = mod.SparseSymShiftSolve.create(A, method="minres", **kw).set_shift(0.0)
+        s = mod.SymEigsShiftSolver.from_factored(op, 4, 12, 0.0)
+        s.set_matvec_granularity(True)
+        s.init(v0)
+        assert s.compute(mod.SortRule.LargestMagn, maxit=100, tol=1e-8) == 4
+        out[pkg] = s
+    vals = np.sort(out["port"].eigenvalues())
+    mu = _mu(g)
+    lam = np.sort((mu[:, None] + 1.37 * mu[None, :]).ravel())[:4]
+    np.testing.assert_allclose(vals, lam, rtol=1e-7)
+    assert _counts(out["port"]) == _counts(out["jax"])
+    np.testing.assert_allclose(vals, np.sort(np.asarray(out["jax"].eigenvalues())),
+                               rtol=0, atol=1e-10)
+
+
+def test_checkpoint_resume_identical(tmp_path):
+    """Save after two segments of five restarts, resume in a fresh
+    solver: bitwise the uninterrupted chunked run (and the plain run),
+    with the JAX package's counts."""
+    A = MATRICES["AN30"][0]
+    ref = _driver("port", A, chunk=5)
+    part = _driver("port", A, chunk=5, maxit=10)
+    assert part.info() == stt.CompInfo.NotConverging
+    path = str(tmp_path / "state.npz")
+    part.save_checkpoint(path)
+    with np.load(path) as data:
+        assert {"state_V", "state_H", "ritz_val", "restarts", "nev", "ncv"} <= set(data.files)
+        assert int(data["restarts"]) == 10
+    res = _driver("port", A, chunk=5, resume=path)
+    assert res.info() == stt.CompInfo.Successful
+    _same_run(res, ref)
+    _same_run(res, _driver("port", A))
+    assert _counts(res) == _counts(_driver("jax", A, chunk=5))
+    bad = stt.SymEigsSolver(
+        stt.SparseSymMatProd.from_full(A, device="cpu"), nev=5, ncv=12
+    )
+    with pytest.raises(ValueError, match="mismatch"):
+        bad.load_checkpoint(path)
+
+
+def test_thick_restart_matches_implicit():
+    A = MATRICES["AN30"][0]
+    results = {}
+    for meth in ("implicit", "thick"):
+        e = _driver("port", A, ncv=20, restart=meth)
+        assert e.info() == stt.CompInfo.Successful
+        v, u = e.eigenvalues(), e.eigenvectors().numpy()
+        assert np.abs(A @ u - u * v[None, :]).max() < 1e-9
+        results[meth] = e
+        j = _driver("jax", A, ncv=20, restart=meth)
+        assert _counts(e) == _counts(j)
+        np.testing.assert_allclose(v, np.asarray(j.eigenvalues()), rtol=0, atol=1e-10)
+    np.testing.assert_allclose(results["thick"].eigenvalues(),
+                               results["implicit"].eigenvalues(), atol=1e-9)
+
+
+def test_thick_restart_smallest_sparse():
+    g = 14
+    lap1 = _lap1(g)
+    A = (sps.kron(sps.eye(g), lap1) + sps.kron(lap1, sps.eye(g))).tocsr()
+    e = _driver("port", A, nev=5, ncv=24, rule="SmallestAlge", restart="thick",
+                v0=SimpleRandom(0).random_vec(g * g))
+    assert e.info() == stt.CompInfo.Successful
+    true = np.sort(np.linalg.eigvalsh(A.toarray()))[:5]
+    np.testing.assert_allclose(np.sort(e.eigenvalues()), true, atol=1e-9)
+
+
+def test_matvec_granularity_checkpoint_resume(tmp_path):
+    """A state saved by the chunked driver resumes under the stepped
+    driver and equals the uninterrupted plain run bitwise."""
+    A = MATRICES["AN30"][0]
+    ref = _driver("port", A)
+    part = _driver("port", A, chunk=5, maxit=10)
+    path = str(tmp_path / "state.npz")
+    part.save_checkpoint(path)
+    res = _driver("port", A, stepped=True, resume=path)
+    assert res.info() == stt.CompInfo.Successful
+    _same_run(res, ref)
+
+
+def test_matvec_granularity_breakdown_expansion():
+    """An exact eigenvector start forces ||f|| = 0 at init, so step 1
+    expands the basis with a random vector: the stepped driver takes the
+    same branch (the expansion's extra operator application is counted)
+    and the same values as the plain driver, as in the JAX package."""
+    n = 50
+    A = sps.diags(np.arange(1.0, n + 1.0)).tocsr()
+    v0 = np.zeros(n)
+    v0[-1] = 1.0
+    ref = _driver("port", A, nev=3, ncv=8, v0=v0)
+    stepped = _driver("port", A, nev=3, ncv=8, v0=v0, stepped=True)
+    assert stepped.info() == stt.CompInfo.Successful
+    _same_run(stepped, ref)
+    np.testing.assert_allclose(np.sort(stepped.eigenvalues()),
+                               [n - 2.0, n - 1.0, float(n)], atol=1e-9)
+    j = _driver("jax", A, nev=3, ncv=8, v0=v0)
+    np.testing.assert_allclose(np.sort(stepped.eigenvalues()),
+                               np.sort(np.asarray(j.eigenvalues())), atol=1e-12)
