@@ -9,17 +9,21 @@ Phases, each printing JSON lines and its wall time:
 1. environment: the card's name and power limit (``nvidia-smi``), the
    build of every kernel under ``spectra_tpu_torch/csrc`` (one ``nvcc``
    per source, all at once), and a check that f32 products are not TF32;
-2. the streaming probe ``y = 2 x`` over 2^28 f32 (1 GiB) against
-   ``x * 2``: the card's measured bytes per second beside the data sheet;
+2. the streaming probe ``y = 2 x`` over 2^28 f32 (1 GiB), every variant
+   of its kernel bitwise against ``x * 2`` and timed beside
+   ``torch.mul(x, 2)``: the card's measured bytes per second beside the
+   data sheet;
 3. K1 (the DIA SpMV) against its plain PyTorch version on the card;
-4. K2 (the double-single hi/lo DIA SpMV) against its plain version, at
-   the north star's operator (3-D g=243, n = 14,348,907) and its
-   multigrid level 1 and a few other shapes, both entry points;
+4. K2 (the double-single hi/lo DIA SpMV) against its plain versions, at
+   the north star's operator (3-D g=243, n = 14,348,907), its multigrid
+   level 1 and shapes with n of every residue mod 4, all three entry
+   points; the f64 entry also against the three-step route;
 5. K1's time at config #2's shape, f64 and f32, beside its bound, its
    plain version and one ``torch.sparse`` CSR product;
-6. K2's time at g=243 in three modes: (A) K1 on the f64 matrix, (B) K2
-   on resident planes, (C) ``DiaHiLoMatrix.matvec`` with the split and
-   combine of every call; each beside its bound, plain version and the
+6. K2's time at g=243 in four modes: (A) K1 on the f64 matrix, (B) K2
+   on resident planes, (C) ``DiaHiLoMatrix.matvec``, the f64 entry, and
+   (C0) the three-step route split, K2, combine; B, C and C0 also at MG
+   level 1; each beside its bound, plain version and the
    ``torch.sparse`` CSR f64 product;
 7. the probes P3 ``dia_noshift`` and P4 ``dia_roll2d`` (rows 32 to 256)
    at d=5, n=10^6 in f32, against their plain versions and beside K1
@@ -39,7 +43,9 @@ Phases, each printing JSON lines and its wall time:
     it: shift-invert with the multigrid inner solve, the stepped driver
     and ``compute_locked`` for the 20 smallest eigenvalues, counted with
     multiplicity, of the 3-D 7-point Laplacian at g=243 (100,088,055
-    nonzeros), and a profile of a few of its inner solves;
+    nonzeros), each level of its built hierarchy timed beside its bound
+    and its launches per run, and a profile of a few of its inner
+    solves;
 13. a ``kernels`` line with each kernel's numbers;
 14. the last line, ``{"ok": true, "device": {...}}``.
 
@@ -207,7 +213,8 @@ class Timer:
         self.torch = torch
         self.flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
 
-    def cold(self, fn, reps=40):
+    def samples(self, fn, reps=40):
+        """ms of each of ``reps`` calls, the L2 flushed before each."""
         torch = self.torch
         fn()
         pairs = []
@@ -220,7 +227,10 @@ class Timer:
             e.record()
             pairs.append((s, e))
         torch.cuda.synchronize()
-        return float(np.median([s.elapsed_time(e) for s, e in pairs]))
+        return [s.elapsed_time(e) for s, e in pairs]
+
+    def cold(self, fn, reps=40):
+        return float(np.median(self.samples(fn, reps)))
 
     def chained(self, step, x, iters=200):
         """ms per ``x = step(x)`` over ``iters`` chained calls."""
@@ -512,34 +522,59 @@ def profile_start(torch, stt, op, v0):
 
 
 def phase_stream(torch, smod, bandwidth):
-    """The streaming probe over 2^28 f32: bitwise against ``x * 2``, its
-    rate beside the plain call's and the data sheet's."""
+    """The streaming probe over 2^28 f32, every variant bitwise against
+    ``x * 2``, then timed in two passes (the second in reverse order)
+    beside ``torch.mul(x, 2)``, 20 calls each per pass, L2 flushed: the
+    default variant's rate is the card's measured stream rate. The
+    counter is set to 0 after the comparisons and read after the
+    timing."""
     n = 1 << 28
     x = torch.randn(n, dtype=torch.float32, device="cuda")
     timer = Timer(torch)
-    smod.LAUNCHES = 0
-    y = smod.stream_scale2(x)
     ref = smod.stream_scale2_plain(x)
+    errs = {}
+    for variant in smod.VARIANTS:
+        y = smod.stream_scale2(x, variant)
+        torch.cuda.synchronize()
+        errs[variant] = (float((y - ref).abs().max()), bool(torch.equal(y, ref)))
+        del y
+    del ref
+    calls = {f"kernel_{v}": (lambda v=v: smod.stream_scale2(x, v)) for v in smod.VARIANTS}
+    calls["library_torch_mul"] = lambda: torch.mul(x, 2.0)
+    times = {k: [] for k in calls}
     torch.cuda.synchronize()
-    err = float((y - ref).abs().max())
-    bitwise = bool(torch.equal(y, ref))
-    del y, ref
-    ms = timer.cold(lambda: smod.stream_scale2(x), reps=20)
+    smod.LAUNCHES = 0
+    for order in (list(calls), list(calls)[::-1]):
+        for k in order:
+            times[k] += timer.samples(calls[k], 20)
+    torch.cuda.synchronize()
     launches = smod.LAUNCHES
     plain_ms = timer.cold(lambda: smod.stream_scale2_plain(x), reps=20)
-    library_ms = timer.cold(lambda: torch.mul(x, 2.0), reps=20)
     bytes_moved = 8 * n
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    library_ms = med["library_torch_mul"]
+    variants = {
+        v: dict(ms=med[f"kernel_{v}"], gb_s=bytes_moved / (med[f"kernel_{v}"] * 1e-3) / 1e9,
+                over_library=med[f"kernel_{v}"] / library_ms, max_abs_err=errs[v][0],
+                bitwise_equal=errs[v][1])
+        for v in smod.VARIANTS
+    }
+    ms = med[f"kernel_{smod.DEFAULT_VARIANT}"]
     out = dict(
-        n=n, bytes=bytes_moved, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        n=n, bytes=bytes_moved, variant=smod.DEFAULT_VARIANT, ms=ms,
+        plain_ms=plain_ms, library_ms=library_ms,
         bound_ms=bytes_moved / bandwidth * 1e3, bound_by="bytes",
         gb_s=bytes_moved / (ms * 1e-3) / 1e9,
+        library_gb_s=bytes_moved / (library_ms * 1e-3) / 1e9,
         plain_gb_s=bytes_moved / (plain_ms * 1e-3) / 1e9,
-        datasheet_gb_s=bandwidth / 1e9, launches=launches, max_abs_err=err,
-        bitwise_equal=bitwise, enqueue_us=enqueue_us(torch, lambda: smod.stream_scale2(x), 20),
+        datasheet_gb_s=bandwidth / 1e9, launches=launches,
+        max_abs_err=max(e for e, _ in errs.values()),
+        bitwise_equal=all(b for _, b in errs.values()), variants=variants,
+        enqueue_us=enqueue_us(torch, lambda: smod.stream_scale2(x), 20),
     )
     emit(phase="stream_probe", kernel="stream_scale", **out)
-    if not bitwise:
-        raise RuntimeError("stream_scale disagrees with x * 2")
+    if not out["bitwise_equal"]:
+        raise RuntimeError(f"stream_scale disagrees with x * 2: {errs}")
     return out
 
 
@@ -553,12 +588,17 @@ def ext_reference(torch, data, offsets, x_ext, n):
 
 
 def check_ds_kernel(torch, dsmod, pf, pmg, A243):
-    """K2 against its plain version on the card. Expected: bitwise equal
-    (every step a separately rounded f32 operation in both); stated
-    tolerance ``1e-12 * max|y|`` of the f64 K1 product, both against the
-    plain version and against that product. Returns the largest
-    |kernel - plain| (combined to f64), the g=243 f64 DiaMatrix and its
-    hi/lo matrix."""
+    """K2 against its plain versions on the card, every entry at every
+    case. Expected: bitwise equal (every step a separately rounded
+    operation in both); stated tolerance ``1e-12 * max|y|`` of the f64
+    K1 product, both against the plain version and against that product.
+    The f64 entry (``DiaHiLoMatrix.matvec``, one launch) must also be
+    bitwise its plain version and the three-step route
+    ``combine_f64(padded(split_f64(x)))`` launched on the card, or the
+    phase raises. The cases cover n of every residue mod 4 and n < 4.
+    Returns the largest |kernel - plain| (combined to f64) and the
+    timing cases: the g=243 operator and MG level 1, each as
+    ``(f64 DiaMatrix, hi/lo matrix, scipy CSR)``."""
     import scipy.sparse as sps
 
     rng = np.random.default_rng(1)
@@ -580,78 +620,88 @@ def check_ds_kernel(torch, dsmod, pf, pmg, A243):
     offsets17 = tuple(
         sorted(int(o) for o in rng.choice(np.arange(-5000, 5001), 17, replace=False))
     )
+    dia1 = pf.dia_from_scipy(A1)
+
+    def random_dia(d_offsets, rows):
+        return pf.DiaMatrix(
+            data=torch.randn((len(d_offsets), rows), dtype=torch.float64, device="cuda"),
+            offsets=d_offsets, n_rows=rows, n_cols=rows,
+        )
+
     cases = {
-        "laplacian_3d_g243": dia243,
-        "mg_level1_g122": pf.dia_from_scipy(A1),
+        "laplacian_3d_g243": dia243,  # n mod 4 = 3
+        "mg_level1_g122": dia1,  # n mod 4 = 0
         "n777_offsets_-3_0_1": pf.dia_from_scipy(sps.diags(
             [np.ones(n - 3), 2.0 + np.arange(n), -np.ones(n - 1)], [-3, 0, 1]
-        ).tocsr()),
-        "offsets_-17_0_17": pf.DiaMatrix(
-            data=torch.randn((3, 10**5), dtype=torch.float64, device="cuda"),
-            offsets=(-17, 0, 17), n_rows=10**5, n_cols=10**5,
-        ),
-        "banded_17_diagonals": pf.DiaMatrix(
-            data=torch.randn((17, 10**6), dtype=torch.float64, device="cuda"),
-            offsets=offsets17, n_rows=10**6, n_cols=10**6,
-        ),
+        ).tocsr()),  # n mod 4 = 1
+        "offsets_-17_0_17": random_dia((-17, 0, 17), 10**5),
+        "banded_17_diagonals": random_dia(offsets17, 10**6),
+        "n1002_offsets_-5_9": random_dia((-5, 9), 1002),  # n mod 4 = 2
+        "n3_offsets_-1_0_1": random_dia((-1, 0, 1), 3),
+        "n1_offset_0": random_dia((0,), 1),
     }
-    del A1
     worst = 0.0
 
-    def judge(label, entry, yh, yl, ph, pl, ref, d, n):
+    def judge(label, entry, y, yp, ref, d, n, **extra):
         nonlocal worst
-        y, yp = dsmod.combine_f64(yh, yl), dsmod.combine_f64(ph, pl)
         scale = float(ref.abs().max())
         err_plain = float((y - yp).abs().max())
         err_f64 = float((y - ref).abs().max())
-        bitwise = bool(torch.equal(yh, ph) and torch.equal(yl, pl))
         ok = err_plain <= 1e-12 * scale and err_f64 <= 1e-12 * scale
         emit(phase="kernel_vs_plain", kernel="dia_spmv_ds", case=label,
              entry=entry, d=d, n=n, max_abs_err=err_plain,
-             max_abs_err_vs_f64=err_f64, max_abs_y=scale,
-             bitwise_equal=bitwise, ok=ok)
+             max_abs_err_vs_f64=err_f64, max_abs_y=scale, ok=ok, **extra)
         if not ok:
             raise RuntimeError(f"dia_spmv_ds disagrees on {label} ({entry})")
         worst = max(worst, err_plain)
 
-    hilo243 = None
     for label, dia in cases.items():
         hilo = pf.DiaHiLoMatrix.from_dia(dia)
-        offs, n = hilo.offsets, hilo.n_rows
+        hi, lo, offs, n = hilo.data_hi, hilo.data_lo, hilo.offsets, hilo.n_rows
         x = torch.randn(n, dtype=torch.float64, device="cuda")
+        ref = dia.matvec(x)
         xh, xl = dsmod.split_f64(x)
-        yh, yl = dsmod.dia_spmv_ds_padded(
-            hilo.data_hi, hilo.data_lo, xh, xl, offsets=offs, n=n
-        )
-        ph, pl = dsmod.dia_spmv_ds_plain(
-            hilo.data_hi, hilo.data_lo, xh, xl, offsets=offs, n=n
-        )
-        judge(label, "padded", yh, yl, ph, pl, dia.matvec(x), len(offs), n)
+        yh, yl = dsmod.dia_spmv_ds_padded(hi, lo, xh, xl, offsets=offs, n=n)
+        ph, pl = dsmod.dia_spmv_ds_plain(hi, lo, xh, xl, offsets=offs, n=n)
+        judge(label, "padded", dsmod.combine_f64(yh, yl), dsmod.combine_f64(ph, pl),
+              ref, len(offs), n,
+              bitwise_equal=bool(torch.equal(yh, ph) and torch.equal(yl, pl)))
+        before = dsmod.LAUNCHES
+        y = hilo.matvec(x)
+        torch.cuda.synchronize()
+        launches = dsmod.LAUNCHES - before
+        three_step = dsmod.combine_f64(yh, yl)
+        yp = dsmod.dia_spmv_ds_f64_plain(hi, lo, x, offsets=offs, n=n)
+        bitwise, bitwise_route = bool(torch.equal(y, yp)), bool(torch.equal(y, three_step))
+        judge(label, "f64", y, yp, ref, len(offs), n, bitwise_equal=bitwise,
+              bitwise_equal_three_step_route=bitwise_route, launches=launches,
+              plane_ld=hi.shape[1])
+        if not (bitwise and bitwise_route and launches == 1):
+            raise RuntimeError(
+                f"the f64 entry on {label} is not one launch bitwise equal to its "
+                f"plain version ({bitwise}) and the three-step route ({bitwise_route})"
+            )
+        del y, yp, three_step, yh, yl, ph, pl
         if label == "banded_17_diagonals":
-            lo, hi = max(0, -min(offs)), max(0, max(offs))
-            x_ext = torch.randn(lo + n + hi, dtype=torch.float64, device="cuda")
+            lo_, hi_ = max(0, -min(offs)), max(0, max(offs))
+            x_ext = torch.randn(lo_ + n + hi_, dtype=torch.float64, device="cuda")
             xh, xl = dsmod.split_f64(x_ext)
-            yh, yl = dsmod.dia_spmv_ds_ext(
-                hilo.data_hi, hilo.data_lo, xh, xl, offsets=offs, n=n
-            )
-            ph, pl = dsmod.dia_spmv_ds_ext_plain(
-                hilo.data_hi, hilo.data_lo, xh, xl, offsets=offs, n=n
-            )
-            ref = ext_reference(torch, dia.data, offs, x_ext, n)
-            judge(label + "_random_halos", "ext", yh, yl, ph, pl, ref,
-                  len(offs), n)
+            yh, yl = dsmod.dia_spmv_ds_ext(hi, lo, xh, xl, offsets=offs, n=n)
+            ph, pl = dsmod.dia_spmv_ds_ext_plain(hi, lo, xh, xl, offsets=offs, n=n)
+            judge(label + "_random_halos", "ext", dsmod.combine_f64(yh, yl),
+                  dsmod.combine_f64(ph, pl), ext_reference(torch, dia.data, offs, x_ext, n),
+                  len(offs), n,
+                  bitwise_equal=bool(torch.equal(yh, ph) and torch.equal(yl, pl)))
         if label == "laplacian_3d_g243":
-            hilo243 = hilo
-            # matmat: one launch per column; Y holds combine(K2).
+            # matmat: one launch per column, each the f64 entry.
             X = torch.randn((n, 10), dtype=torch.float64, device="cuda")
             Y = hilo.matmat(X)
             ref = dia.matmat(X)
             err_mm, bitwise_mm = 0.0, True
             for c in range(10):
-                yp = dsmod.combine_f64(*dsmod.dia_spmv_ds_plain(
-                    hilo.data_hi, hilo.data_lo,
-                    *dsmod.split_f64(X[:, c].contiguous()), offsets=offs, n=n,
-                ))
+                yp = dsmod.dia_spmv_ds_f64_plain(
+                    hi, lo, X[:, c].contiguous(), offsets=offs, n=n
+                )
                 scale = float(ref[:, c].abs().max())
                 err = float((Y[:, c] - yp).abs().max())
                 err_f64 = float((Y[:, c] - ref[:, c]).abs().max())
@@ -660,83 +710,102 @@ def check_ds_kernel(torch, dsmod, pf, pmg, A243):
                 err_mm = max(err_mm, err)
                 bitwise_mm = bitwise_mm and bool(torch.equal(Y[:, c], yp))
             emit(phase="kernel_vs_plain", kernel="dia_spmv_ds",
-                 case="matmat_10_columns_g243", entry="padded", d=len(offs),
+                 case="matmat_10_columns_g243", entry="f64", d=len(offs),
                  n=n, max_abs_err=err_mm, bitwise_equal=bitwise_mm, ok=True)
             worst = max(worst, err_mm)
             del X, Y, ref
-        else:
-            del hilo
+        cases[label] = hilo if label in ("laplacian_3d_g243", "mg_level1_g122") else None
+        del hilo
+    timing = {
+        "g243": (dia243, cases["laplacian_3d_g243"], A243),
+        "mg_level1": (dia1, cases["mg_level1_g122"], A1),
+    }
     del cases
     torch.cuda.empty_cache()
-    return worst, dia243, hilo243
+    return worst, timing
 
 
-def time_ds(torch, dsmod, dmod, A243, dia, hilo, rates, stream_gbs):
-    """K2 at g=243 in the three modes of ``scripts/tpu_dia_ds_probe.py``,
-    with the L2 flushed before each call: (A) K1 on the f64 matrix,
-    (B) K2 on resident planes, (C) ``DiaHiLoMatrix.matvec`` with the
-    split and combine of every call. Each beside its bound from bytes,
-    its plain version and the ``torch.sparse`` CSR f64 product (one
-    library call computing the same y = A x). B and C are validated
-    against the f64 product to ~1e-14 relative, as the probe does."""
+def time_ds(torch, dsmod, dmod, timing_cases, rates, stream_gbs):
+    """K2 in the modes of ``scripts/tpu_dia_ds_probe.py``, with the L2
+    flushed before each call: (A) K1 on the f64 matrix, (B) K2 on
+    resident x planes, (C) ``DiaHiLoMatrix.matvec``, the f64 entry that
+    splits x and combines y in the kernel (the route the solver takes),
+    and (C0) the earlier route ``combine_f64(K2(split_f64(x)))``, eight
+    launches, timed in the same run. At the g=243 operator all four, at
+    MG level 1 B, C and C0. Each beside its bound from bytes, its plain
+    version and the ``torch.sparse`` CSR f64 product (one library call
+    computing the same y = A x). B, C and C0 are validated against the
+    f64 product to ~1e-14 relative, as the probe does."""
     bandwidth, f64_rate, f32_rate = rates
     timer = Timer(torch)
-    n, offs, d = dia.n_rows, dia.offsets, len(dia.offsets)
-    x = torch.randn(n, dtype=torch.float64, device="cuda")
-    xh, xl = dsmod.split_f64(x)
-    hi, lo = hilo.data_hi, hilo.data_lo
-    ref = dia.matvec(x)
-    y_b = dsmod.combine_f64(*dsmod.dia_spmv_ds_padded(hi, lo, xh, xl, offsets=offs, n=n))
-    y_c = hilo.matvec(x)
-    scale = float(ref.abs().max())
-    rel_b = float((y_b - ref).abs().max()) / scale
-    rel_c = float((y_c - ref).abs().max()) / scale
-    del y_b, y_c
-    csr = torch_csr(torch, A243, np.float64)
-    library_ms = timer.cold(lambda: csr @ x)
-    y_lib = csr @ x
-    rel_lib = float((y_lib - ref).abs().max()) / scale
-    del csr, y_lib
-    # The terms this data needs: row i and diagonal k with i + off in range.
-    terms = sum(n - abs(o) for o in offs)
-    modes = {
-        "A_k1_f64": dict(
-            fn=lambda: dia.matvec(x),
-            plain=lambda: dmod.dia_spmv_plain(dia.data, offs, x, n),
-            bytes=(d + 2) * 8 * n, ops=2 * terms, rate=f64_rate,
-        ),
-        "B_k2_resident_planes": dict(
-            fn=lambda: dsmod.dia_spmv_ds_padded(hi, lo, xh, xl, offsets=offs, n=n),
-            plain=lambda: dsmod.dia_spmv_ds_plain(hi, lo, xh, xl, offsets=offs, n=n),
-            bytes=(d * 8 + 16) * n, ops=23 * terms, rate=f32_rate,
-        ),
-        "C_hilo_matvec_split_combine": dict(
-            fn=lambda: hilo.matvec(x),
-            plain=lambda: dsmod.combine_f64(*dsmod.dia_spmv_ds_plain(
-                hi, lo, *dsmod.split_f64(x), offsets=offs, n=n)),
-            bytes=(d * 8 + 16 + 32) * n, ops=23 * terms, rate=f32_rate,
-        ),
-    }
-    out = {}
-    for name, m in modes.items():
-        ms = timer.cold(m["fn"])
-        plain_ms = timer.cold(m["plain"])
-        t_bytes = m["bytes"] / bandwidth
-        t_ops = m["ops"] / m["rate"]
-        out[name] = dict(
-            ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-            bound_ms=max(t_bytes, t_ops) * 1e3,
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            bytes=m["bytes"], bound_ms_at_stream_rate=m["bytes"] / (stream_gbs * 1e9) * 1e3,
-            fraction_of_bound=max(t_bytes, t_ops) * 1e3 / ms,
-            fraction_of_stream_rate=m["bytes"] / (stream_gbs * 1e9) * 1e3 / ms,
-            gnnz_s=int(A243.nnz) / (ms * 1e-3) / 1e9,
-            enqueue_us=enqueue_us(torch, m["fn"]),
+    out, accuracy = {}, {}
+    for case, (dia, hilo, A) in timing_cases.items():
+        n, offs, d = dia.n_rows, dia.offsets, len(dia.offsets)
+        x = torch.randn(n, dtype=torch.float64, device="cuda")
+        xh, xl = dsmod.split_f64(x)
+        hi, lo = hilo.data_hi, hilo.data_lo
+        ref = dia.matvec(x)
+        scale = float(ref.abs().max())
+        csr = torch_csr(torch, A, np.float64)
+        library_ms = timer.cold(lambda: csr @ x)
+        accuracy[case] = dict(
+            B=dsmod.combine_f64(*dsmod.dia_spmv_ds_padded(hi, lo, xh, xl, offsets=offs, n=n)),
+            C=hilo.matvec(x), torch_sparse=csr @ x,
         )
-        emit(phase="ds_timing", mode=name, d=d, n=n, nnz=int(A243.nnz), **out[name])
-    emit(phase="ds_accuracy", rel_err_B_vs_f64=rel_b, rel_err_C_vs_f64=rel_c,
-         rel_err_torch_sparse_vs_k1=rel_lib)
-    if rel_b > 1e-13 or rel_c > 1e-13:
+        accuracy[case] = {k: float((v - ref).abs().max()) / scale
+                          for k, v in accuracy[case].items()}
+        del csr, ref
+        # The terms this data needs: row i and diagonal k with i + off in range.
+        terms = sum(n - abs(o) for o in offs)
+        modes = {
+            "B_k2_resident_planes": dict(
+                fn=lambda: dsmod.dia_spmv_ds_padded(hi, lo, xh, xl, offsets=offs, n=n),
+                plain=lambda: dsmod.dia_spmv_ds_plain(hi, lo, xh, xl, offsets=offs, n=n),
+                bytes=(d * 8 + 16) * n, ops=23 * terms, rate=f32_rate,
+            ),
+            "C_hilo_matvec_f64_entry": dict(
+                fn=lambda: hilo.matvec(x),
+                plain=lambda: dsmod.dia_spmv_ds_f64_plain(hi, lo, x, offsets=offs, n=n),
+                bytes=(d * 8 + 16) * n, ops=23 * terms, rate=f32_rate,
+            ),
+            "C0_split_k2_combine": dict(
+                fn=lambda: dsmod.combine_f64(*dsmod.dia_spmv_ds_padded(
+                    hi, lo, *dsmod.split_f64(x), offsets=offs, n=n)),
+                plain=lambda: dsmod.dia_spmv_ds_f64_plain(hi, lo, x, offsets=offs, n=n),
+                bytes=(d * 8 + 16 + 32) * n, ops=23 * terms, rate=f32_rate,
+            ),
+        }
+        if case == "g243":
+            modes = dict(A_k1_f64=dict(
+                fn=lambda: dia.matvec(x),
+                plain=lambda: dmod.dia_spmv_plain(dia.data, offs, x, n),
+                bytes=(d + 2) * 8 * n, ops=2 * terms, rate=f64_rate,
+            ), **modes)
+        out[case] = {}
+        for name, m in modes.items():
+            ms = timer.cold(m["fn"])
+            plain_ms = timer.cold(m["plain"])
+            t_bytes = m["bytes"] / bandwidth
+            t_ops = m["ops"] / m["rate"]
+            at_stream = m["bytes"] / (stream_gbs * 1e9) * 1e3
+            out[case][name] = dict(
+                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=m["bytes"], bound_ms_at_stream_rate=at_stream,
+                fraction_of_bound=max(t_bytes, t_ops) * 1e3 / ms,
+                fraction_of_stream_rate=at_stream / ms,
+                gnnz_s=int(A.nnz) / (ms * 1e-3) / 1e9,
+                enqueue_us=enqueue_us(torch, m["fn"]),
+            )
+            emit(phase="ds_timing", case=case, mode=name, d=d, n=n, nnz=int(A.nnz),
+                 **out[case][name])
+        c, c0 = out[case]["C_hilo_matvec_f64_entry"], out[case]["C0_split_k2_combine"]
+        emit(phase="ds_route_speedup", case=case, c0_over_c=c0["ms"] / c["ms"],
+             c_over_library=c["ms"] / c["library_ms"])
+        del x, xh, xl, modes
+    emit(phase="ds_accuracy", rel_err_vs_k1_f64=accuracy)
+    if any(v > 1e-13 for a in accuracy.values() for k, v in a.items() if k != "torch_sparse"):
         raise RuntimeError("the double-single product is not f64-grade")
     return out
 
@@ -856,7 +925,7 @@ def phase_f32_ceiling(torch, vmod, dmod, pf, A243, rates, ds_t):
     )
     torch.cuda.synchronize()
     launches = dmod.LAUNCHES
-    b = ds_t["B_k2_resident_planes"]
+    b = ds_t["g243"]["B_k2_resident_planes"]
     t.update(k2_mode_b_ms=b["ms"], k2_mode_b_bytes=b["bytes"],
              k2_over_p5_time=b["ms"] / t["ms"], k2_over_p5_bytes=b["bytes"] / t["bytes"])
     emit(phase="f32_ceiling", kernel="dia_spmv_f32", d=len(offs), n=n, **t)
@@ -946,7 +1015,8 @@ def run_north_star(torch, stt, dmod, dsmod, pmg, pf, A, dia64, matrix_s):
     cuts for a 16 GB TPU (``:137-143``, ``:170-173``), and the card has
     80 GB. Round 0 is the plain ``compute`` of the same solver, so the
     plain path stays driven; its counts are reported apart. Returns the
-    operator and the K1/K2 launches of the run."""
+    operator, the K1/K2 launches of the run and its V-cycles and inner
+    solves."""
     from spectra_tpu_torch.util.rng import SimpleRandom
 
     n = A.shape[0]
@@ -1038,7 +1108,68 @@ def run_north_star(torch, stt, dmod, dsmod, pmg, pf, A, dia64, matrix_s):
             f"north star: K2 {k2} (expected {expected_k2}), "
             f"K1 {k1} (expected {expected_k1})"
         )
-    return op, k1, k2
+    return op, k1, k2, cycles, solves
+
+
+def dia_csr(torch, pf, m):
+    """A DIA level (f64 or hi/lo) as a ``torch.sparse`` CSR f64 tensor
+    built on the card, stored zeros dropped: the library call's operand."""
+    data = m.to_dia().data if isinstance(m, pf.DiaHiLoMatrix) else m.data
+    n = m.n_rows
+    rows = torch.arange(n, device="cuda")
+    idx, vals = [], []
+    for k, off in enumerate(m.offsets):
+        cols = rows + off
+        keep = (cols >= 0) & (cols < n) & (data[k] != 0)
+        idx.append(torch.stack([rows[keep], cols[keep]]))
+        vals.append(data[k][keep])
+    coo = torch.sparse_coo_tensor(torch.cat(idx, 1), torch.cat(vals), (n, n))
+    del data, idx, vals
+    return coo.coalesce().to_sparse_csr()
+
+
+def phase_north_star_levels(torch, dsmod, dmod, pf, mg, counts, rates):
+    """Each level of the north star's built hierarchy (``mg.ops``) timed
+    as the V-cycle calls it (``level.matvec``), L2 flushed, beside its
+    bound, its plain version, one ``torch.sparse`` CSR product and its
+    launches per run of the north star, from the run's V-cycles and
+    solves: level 0 makes nu1 + 1 + nu2 SpMVs per V-cycle, one more for
+    ``mg_solve``'s residual and two per solve; every other level
+    nu1 + 1 + nu2 per V-cycle. Levels 0-1 run K2's f64 entry, the others
+    K1. The per-level launches must add up to the run's K2 and K1
+    counts."""
+    bandwidth, f64_rate, f32_rate = rates
+    k1, k2, cycles, solves = counts
+    timer = Timer(torch)
+    per_cycle = mg.nu1 + 1 + mg.nu2
+    rows, sums = [], {True: 0, False: 0}
+    for lv, m in enumerate(mg.ops):
+        n, offs, d = m.n_rows, m.offsets, len(m.offsets)
+        hilo = isinstance(m, pf.DiaHiLoMatrix)
+        terms = sum(n - abs(o) for o in offs)
+        x = torch.randn(n, dtype=torch.float64, device="cuda")
+        if hilo:
+            kernel, bytes_moved, ops, rate = "dia_spmv_ds", (8 * d + 16) * n, 23 * terms, f32_rate
+            plain = lambda: dsmod.dia_spmv_ds_f64_plain(
+                m.data_hi, m.data_lo, x, offsets=offs, n=n)
+        else:
+            kernel, bytes_moved, ops, rate = "dia_spmv", (d + 2) * 8 * n, 2 * terms, f64_rate
+            plain = lambda: dmod.dia_spmv_plain(m.data, offs, x, n)
+        csr = dia_csr(torch, pf, m)
+        t = timed_entry(timer, lambda: m.matvec(x), plain, lambda: csr @ x,
+                        bytes_moved, ops, rate, bandwidth)
+        launches = cycles * per_cycle + (cycles + 2 * solves if lv == 0 else 0)
+        sums[hilo] += launches
+        t.update(level=lv, kernel=kernel, dims=list(mg.dims_per_level[lv]), n=n, d=d,
+                 nnz=int(csr.values().numel()), launches=launches,
+                 card_s_per_run=launches * t["ms"] * 1e-3)
+        emit(phase="north_star_level_timing", **t)
+        rows.append(t)
+        del csr, x
+    torch.cuda.empty_cache()
+    if sums[True] != k2 or sums[False] != k1:
+        raise RuntimeError(f"per-level launches {sums} do not add up to K2 {k2}, K1 {k1}")
+    return rows
 
 
 def profile_north_star(torch, op, solves=3):
@@ -1111,13 +1242,14 @@ def main():
     matrix_s = time.perf_counter() - t0
     emit(phase="north_star_matrix", g=G_NORTH, n=A243.shape[0],
          nnz=int(A243.nnz), build_s=matrix_s)
-    worst_k2, dia243, hilo243 = phase(
+    worst_k2, ds_cases = phase(
         "k2_vs_plain", check_ds_kernel, torch, dsmod, pf, pmg, A243
     )
     timing = phase("k1_timing", time_kernel, torch, dmod, pf, rates)
-    ds_t = phase("k2_timing", time_ds, torch, dsmod, dmod, A243, dia243,
-                 hilo243, rates, stream_t["gb_s"])
-    del hilo243
+    ds_t = phase("k2_timing", time_ds, torch, dsmod, dmod, ds_cases, rates,
+                 stream_t["gb_s"])
+    dia243 = ds_cases["g243"][0]
+    del ds_cases
     torch.cuda.empty_cache()
     var_t, var_errs, var_launches, best_rows = phase(
         "dia_variants", phase_dia_variants, torch, vmod, dmod, pf, rates
@@ -1132,15 +1264,19 @@ def main():
     k1_config3, k1_config3_full = phase(
         "config3", run_config3, torch, stt, dmod, dsmod, pmg, pf
     )
-    ns_op, k1_ns, k2_ns = phase(
+    ns_op, k1_ns, k2_ns, ns_cycles, ns_solves = phase(
         "north_star", run_north_star, torch, stt, dmod, dsmod, pmg, pf, A243,
         dia243, matrix_s,
     )
     del dia243
+    level_t = phase(
+        "north_star_levels", phase_north_star_levels, torch, dsmod, dmod, pf,
+        ns_op.mg, (k1_ns, k2_ns, ns_cycles, ns_solves), rates,
+    )
     phase("north_star_profile", profile_north_star, torch, ns_op)
 
     f64 = timing["float64"]
-    b_mode = ds_t["B_k2_resident_planes"]
+    c_mode = ds_t["g243"]["C_hilo_matvec_f64_entry"]
     emit(kernels=[
         kernel_entry(
             "dia_spmv", launches, worst_k1, f64,
@@ -1149,16 +1285,20 @@ def main():
             launches_config2=launches, launches_config3=k1_config3,
             launches_config3_full_reorth=k1_config3_full,
             launches_north_star=k1_ns,
+            north_star_levels=[t for t in level_t if t["kernel"] == "dia_spmv"],
         ),
         kernel_entry(
-            "dia_spmv_ds", k2_ns, worst_k2, b_mode,
-            f"d=7, n={G_NORTH ** 3}, f32 hi/lo planes (north-star operator)",
+            "dia_spmv_ds", k2_ns, worst_k2, c_mode,
+            f"d=7, n={G_NORTH ** 3}, f32 hi/lo planes, f64 x and y "
+            "(north-star operator, DiaHiLoMatrix.matvec)",
             modes=ds_t, launches_north_star=k2_ns, launches_config3=0,
+            north_star_levels=[t for t in level_t if t["kernel"] == "dia_spmv_ds"],
         ),
         kernel_entry(
             "stream_scale", stream_t["launches"], stream_t["max_abs_err"],
             stream_t, "n=2^28, float32",
             gb_s=stream_t["gb_s"], datasheet_gb_s=stream_t["datasheet_gb_s"],
+            variant=stream_t["variant"], variants=stream_t["variants"],
             launches_path="the stream-probe phase (a probe, on no solver path)",
         ),
         kernel_entry(

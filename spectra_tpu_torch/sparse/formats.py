@@ -11,9 +11,9 @@ Port of :mod:`spectra_tpu.sparse.formats`. Three formats:
   and ``matmat`` run the hand-written kernel
   :func:`spectra_tpu_torch.ops.dia_spmv.dia_spmv` on the card.
 * **DIA hi/lo** (:class:`DiaHiLoMatrix`): the f64 diagonals as two f32
-  planes; its ``matvec`` runs the double-single kernel
-  :func:`spectra_tpu_torch.ops.dia_ds.dia_spmv_ds_padded` on the card
-  (about 2^-48 relative).
+  planes; its ``matvec`` runs the double-single kernel's f64 entry
+  :func:`spectra_tpu_torch.ops.dia_ds.dia_spmv_ds_f64` on the card, one
+  launch per SpMV (about 2^-48 relative).
 
 Host conversion from scipy.sparse or dense numpy runs once, when an
 operator is built, and places the arrays on ``device`` (``None`` means
@@ -36,7 +36,7 @@ import torch
 
 from spectra_tpu_torch.ops.dia_ds import (
     combine_f64,
-    dia_spmv_ds_padded,
+    dia_spmv_ds_f64,
     hilo_suitable,
     split_f64,
 )
@@ -236,6 +236,17 @@ class DiaMatrix:
         return A
 
 
+#: The hi/lo planes' leading dimension is a multiple of this many f32
+#: (128 bytes): every diagonal then starts 16-byte aligned.
+PLANE_ALIGN = 32
+
+
+def plane_ld(n: int) -> int:
+    """Leading dimension of hi/lo planes for ``n`` rows: ``n`` rounded up
+    to :data:`PLANE_ALIGN`."""
+    return -(-n // PLANE_ALIGN) * PLANE_ALIGN
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class DiaHiLoMatrix:
     """DIA matrix stored as f32 hi/lo planes: ``data_hi + data_lo`` is
@@ -243,17 +254,22 @@ class DiaHiLoMatrix:
     ``lo = f32(a - hi)``, residual <= 2^-48 relative, a backward
     perturbation of A far under any solver tolerance).
 
-    ``matvec`` splits x the same way, runs the double-single SpMV (the
-    kernel on the card, its plain version on the CPU) and combines the
-    result to f64; it never switches to the f64 :class:`DiaMatrix`.
-    ``matmat`` runs one column per launch, as the JAX package's
-    ``lax.map`` does. The other accessors read the planes without
-    building the whole f64 matrix, except ``to_dia``, ``data``,
-    ``rmatvec`` and ``to_dense``.
+    ``matvec`` splits x the same way, runs the double-single SpMV and
+    combines the result to f64, all in one launch of the kernel's f64
+    entry on the card (its plain version on the CPU); it never switches to
+    the f64 :class:`DiaMatrix`. ``matmat`` runs one column per launch, as
+    the JAX package's ``lax.map`` does. The other accessors read the
+    planes' first ``n_rows`` columns without building the whole f64
+    matrix, except ``to_dia``, ``data``, ``rmatvec`` and ``to_dense``.
+
+    The planes' leading dimension is ``n_rows`` rounded up to
+    :data:`PLANE_ALIGN` (zeros beyond ``n_rows``), as the JAX format pads
+    its planes to a multiple of its chunk: then every diagonal starts
+    aligned and each thread's rows are one vector load for the kernel.
     """
 
-    data_hi: torch.Tensor  # (d, n_rows) f32
-    data_lo: torch.Tensor  # (d, n_rows) f32
+    data_hi: torch.Tensor  # (d, ld) f32, ld = n_rows rounded up to PLANE_ALIGN
+    data_lo: torch.Tensor  # (d, ld) f32
     offsets: tuple
     n_rows: int
     n_cols: int
@@ -277,17 +293,25 @@ class DiaHiLoMatrix:
                 "the hi/lo format takes a square f64 DIA matrix with at most "
                 "64 diagonals"
             )
-        hi, lo = split_f64(dia.data)
+        d, n = dia.data.shape
+        planes = []
+        for plane in split_f64(dia.data):
+            padded = torch.zeros(
+                (d, plane_ld(n)), dtype=torch.float32, device=dia.device
+            )
+            padded[:, :n] = plane
+            planes.append(padded)
         return cls(
-            data_hi=hi, data_lo=lo, offsets=dia.offsets, n_rows=dia.n_rows,
-            n_cols=dia.n_cols,
+            data_hi=planes[0], data_lo=planes[1], offsets=dia.offsets,
+            n_rows=dia.n_rows, n_cols=dia.n_cols,
         )
 
     def to_dia(self) -> "DiaMatrix":
         """The f64 :class:`DiaMatrix` of the planes' sum (a full f64
         copy of the diagonals)."""
+        n = self.n_rows
         return DiaMatrix(
-            data=combine_f64(self.data_hi, self.data_lo),
+            data=combine_f64(self.data_hi[:, :n], self.data_lo[:, :n]),
             offsets=self.offsets,
             n_rows=self.n_rows,
             n_cols=self.n_cols,
@@ -301,19 +325,16 @@ class DiaHiLoMatrix:
         """``sum_k |a_k[i]|`` per row, one diagonal at a time, so no
         (d, n) f64 copy is made."""
         acc = torch.zeros(self.n_rows, dtype=torch.float64, device=self.device)
+        n = self.n_rows
         for k in range(len(self.offsets)):
-            acc = acc + combine_f64(self.data_hi[k], self.data_lo[k]).abs()
+            acc = acc + combine_f64(self.data_hi[k, :n], self.data_lo[k, :n]).abs()
         return acc
 
     def matvec(self, x):
-        if x.dtype != torch.float64:
-            raise TypeError("DiaHiLoMatrix.matvec takes a float64 vector")
-        xh, xl = split_f64(x)
-        yh, yl = dia_spmv_ds_padded(
-            self.data_hi, self.data_lo, xh, xl, offsets=self.offsets,
-            n=self.n_rows,
+        """``A x`` for f64 x (a TypeError for any other dtype)."""
+        return dia_spmv_ds_f64(
+            self.data_hi, self.data_lo, x, offsets=self.offsets, n=self.n_rows
         )
-        return combine_f64(yh, yl)
 
     def matmat(self, X):
         return torch.stack(
@@ -332,8 +353,8 @@ class DiaHiLoMatrix:
 
     def diagonal(self):
         if 0 in self.offsets:
-            k = self.offsets.index(0)
-            return combine_f64(self.data_hi[k], self.data_lo[k])
+            k, n = self.offsets.index(0), self.n_rows
+            return combine_f64(self.data_hi[k, :n], self.data_lo[k, :n])
         return torch.zeros(self.n_rows, dtype=self.dtype, device=self.device)
 
     def to_dense(self):
@@ -418,8 +439,11 @@ def dia_device_from_scipy(sp_mat, dtype=None, device=None):
     device = resolve_device(device)
     offsets, rows, n_rows, n_cols = _dia_host_arrays(sp_mat, dtype)
     if hilo_route(rows.dtype, n_rows, n_cols, len(offsets), device.type):
-        hi = rows.astype(np.float32)
-        lo = (rows - hi.astype(np.float64)).astype(np.float32)
+        # split_f64 on the host, into planes padded as from_dia pads them
+        hi = np.zeros((len(offsets), plane_ld(n_rows)), dtype=np.float32)
+        lo = np.zeros_like(hi)
+        hi[:, :n_rows] = rows
+        lo[:, :n_rows] = rows - hi[:, :n_rows].astype(np.float64)
         del rows
         return DiaHiLoMatrix(
             data_hi=_to_device(hi, device),

@@ -114,12 +114,72 @@ def test_ds_kernel_matches_plain_on_card(cuda):
         assert float((Y[:, 0] - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
 
 
+def _stencil_offsets(g):
+    """The 27 offsets of a 3-D 27-point stencil on a g^3 grid (what MG
+    level 1 of a 7-point operator has)."""
+    return tuple(sorted(a * g * g + b * g + c for a in (-1, 0, 1)
+                        for b in (-1, 0, 1) for c in (-1, 0, 1)))
+
+
+# (label, n, offsets): odd n and every residue mod 4, d = 1, 7, 27, 64.
+DS_CASES = [
+    ("n1_d1", 1, (0,)),
+    ("n3_d3", 3, (-1, 0, 1)),
+    ("n1001_d1", 1001, (0,)),
+    ("n1002_d2", 1002, (-5, 9)),
+    ("g17_d7", 17**3, (-289, -17, -1, 0, 1, 17, 289)),
+    ("g15_d27", 15**3, _stencil_offsets(15)),
+    ("n4099_d27", 4099, tuple(range(-39, 42, 3))),
+    ("n5003_d64", 5003, tuple(range(-320, 320, 10))),
+]
+
+
 @pytest.mark.cuda
-def test_stream_probe_matches_plain_on_card(cuda):
-    for n in (1, 7, 4096, (1 << 20) + 3):
+@pytest.mark.parametrize("label, n, offsets", DS_CASES, ids=[c[0] for c in DS_CASES])
+def test_ds_entries_match_plain_on_card(cuda, label, n, offsets):
+    """The f64 entry and both plane entries bitwise against their plain
+    versions, on planes padded as ``DiaHiLoMatrix`` pads them (vector
+    loads) and on unpadded planes (4-byte loads at odd n); the f64 entry also
+    bitwise the three-step route launched on the card, in one launch."""
+    rng = np.random.default_rng(len(offsets) * n)
+    data = torch.from_numpy(rng.standard_normal((len(offsets), n)) * np.pi)
+    dia = pf.DiaMatrix(data=data.cuda(), offsets=offsets, n_rows=n, n_cols=n)
+    padded = pf.DiaHiLoMatrix.from_dia(dia)
+    assert padded.data_hi.shape[1] % pf.PLANE_ALIGN == 0
+    unpadded = dsmod.split_f64(dia.data)
+    lo, hi = max(0, -min(offsets)), max(0, max(offsets))
+    x = torch.randn(n, dtype=torch.float64, device="cuda")
+    x_ext = torch.randn(lo + n + hi, dtype=torch.float64, device="cuda")
+    for dh, dl in ((padded.data_hi, padded.data_lo), unpadded):
+        kw = dict(offsets=offsets, n=n)
+        before = dsmod.LAUNCHES
+        y = dsmod.dia_spmv_ds_f64(dh, dl, x, **kw)
+        torch.cuda.synchronize()
+        assert dsmod.LAUNCHES == before + 1
+        assert torch.equal(y, dsmod.dia_spmv_ds_f64_plain(dh, dl, x, **kw))
+        three_step = dsmod.combine_f64(
+            *dsmod.dia_spmv_ds_padded(dh, dl, *dsmod.split_f64(x), **kw)
+        )
+        assert torch.equal(y, three_step)
+        for entry, plain, v in (
+            (dsmod.dia_spmv_ds_padded, dsmod.dia_spmv_ds_plain, x),
+            (dsmod.dia_spmv_ds_ext, dsmod.dia_spmv_ds_ext_plain, x_ext),
+        ):
+            xh, xl = dsmod.split_f64(v)
+            yh, yl = entry(dh, dl, xh, xl, **kw)
+            ph, pl = plain(dh, dl, xh, xl, **kw)
+            assert torch.equal(yh, ph) and torch.equal(yl, pl)
+    assert torch.equal(padded.matvec(x), dsmod.dia_spmv_ds_f64_plain(
+        padded.data_hi, padded.data_lo, x, offsets=offsets, n=n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", stream.VARIANTS)
+def test_stream_probe_matches_plain_on_card(cuda, variant):
+    for n in (1, 7, 4096, (1 << 20) + 3, (1 << 22) + 4 * 1024 + 2):
         x = torch.randn(n, dtype=torch.float32, device="cuda")
         before = stream.LAUNCHES
-        y = stream.stream_scale2(x)
+        y = stream.stream_scale2(x, variant)
         torch.cuda.synchronize()
         assert stream.LAUNCHES == before + 1
         assert torch.equal(y, x * 2)

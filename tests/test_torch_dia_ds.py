@@ -10,8 +10,11 @@ The plain version also agrees bitwise with a numpy emulation of the
 kernel's f32 recurrence. Against JAX's interpret mode ``yh`` agrees
 bitwise and ``yl`` does not in every entry: XLA on the CPU evaluates the
 error terms in another way; the combined values agree within the
-tolerance. The CUDA kernel is held against the plain version on the card
-by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+tolerance. The f64 entry (``dia_spmv_ds_f64``, what
+``DiaHiLoMatrix.matvec`` runs) is held bitwise to the three-step route
+``combine_f64(padded(split_f64(x)))`` and within the same tolerance to
+the JAX kernel. The CUDA kernel is held against the plain versions on the
+card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 
 import jax.numpy as jnp
@@ -164,6 +167,113 @@ def test_plain_matches_pallas_interpret(case, entry, record_property):
         "bitwise_equal_to_jax",
         bool(np.array_equal(pl.numpy(), np.asarray(jl))),
     )
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_f64_entry_matches_pallas_interpret(case):
+    """The f64 entry against the JAX kernel in interpret mode (its x split
+    and its y combined as the JAX package does at the call boundary) and
+    the f64 product, within ``1e-12 * max|y|``; bitwise the three-step
+    route through the port's own plain version."""
+    offsets, n = CASES[case]
+    data = _random_dia(n, offsets, seed=5)
+    x = np.random.default_rng(6).standard_normal(n)
+    n_pad = (n + CHUNK - 1) // CHUNK * CHUNK
+    dh, dl = jds.split_f64(jnp.pad(jnp.asarray(data), ((0, 0), (0, n_pad - n))))
+    y_jax = np.asarray(jds.combine_f64(*jds.dia_spmv_ds_padded(
+        dh, dl, *jds.split_f64(jnp.asarray(x)), offsets=offsets, n=n,
+        chunk=CHUNK, interpret=True,
+    )))
+    y_port = pds.dia_spmv_ds_f64(_t(dh), _t(dl), _t(x), offsets=offsets, n=n)
+    assert y_port.dtype == torch.float64 and y_port.shape == (n,)
+    three_step = pds.combine_f64(*pds.dia_spmv_ds_plain(
+        _t(dh), _t(dl), *pds.split_f64(_t(x)), offsets=offsets, n=n
+    ))
+    assert torch.equal(y_port, three_step)
+    y_ref = _ref_spmv(data, offsets, x)
+    scale = np.abs(y_ref).max()
+    assert np.abs(y_port.numpy() - y_ref).max() <= 1e-12 * scale
+    assert np.abs(y_port.numpy() - y_jax).max() <= 1e-12 * scale
+
+
+@pytest.mark.parametrize(
+    "n, offsets",
+    [(1, (0,)), (2, (-1, 0, 1)), (3, (-1, 0, 1)), (1001, (-7, 0, 3)),
+     (1002, (0,)), (1003, (-40, -1, 0, 1, 40))],
+)
+def test_f64_plain_is_the_three_step_route(n, offsets):
+    """``dia_spmv_ds_f64_plain`` is bitwise split, the padded recurrence
+    and combine, at n of every residue mod 4 and n < 4; the wrapper on
+    the CPU returns the same."""
+    data = _random_dia(n, offsets, seed=n)
+    dh, dl = pds.split_f64(_t(data))
+    x = _t(np.random.default_rng(n).standard_normal(n) * 1e3)
+    y = pds.dia_spmv_ds_f64_plain(dh, dl, x, offsets=offsets, n=n)
+    ref = pds.combine_f64(
+        *pds.dia_spmv_ds_plain(dh, dl, *pds.split_f64(x), offsets=offsets, n=n)
+    )
+    assert torch.equal(y, ref)
+    assert torch.equal(pds.dia_spmv_ds_f64(dh, dl, x, offsets=offsets, n=n), ref)
+
+
+@pytest.mark.parametrize("n", [1256, 1257, 1258, 1259])
+def test_hilo_matvec_unchanged_by_padded_planes(n):
+    """``from_dia`` pads the planes' leading dimension to a multiple of 32
+    with zeros; ``matvec`` (now one call of the f64 entry) is bitwise the
+    three-step route over unpadded planes, at n of every residue mod 4."""
+    offsets = (-16, -1, 0, 1, 16)
+    data = _random_dia(n, offsets, seed=n)
+    hilo = pf.DiaHiLoMatrix.from_dia(dia_from_numpy(data, offsets, n, n, device="cpu"))
+    ld = hilo.data_hi.shape[1]
+    assert hilo.data_lo.shape == hilo.data_hi.shape == (5, ld)
+    assert ld % pf.PLANE_ALIGN == 0 and n <= ld < n + pf.PLANE_ALIGN
+    assert not hilo.data_hi[:, n:].any() and not hilo.data_lo[:, n:].any()
+    dh, dl = pds.split_f64(_t(data))
+    assert torch.equal(hilo.data_hi[:, :n], dh) and torch.equal(hilo.data_lo[:, :n], dl)
+    x = _t(np.random.default_rng(7).standard_normal(n))
+    before = pds.combine_f64(
+        *pds.dia_spmv_ds_plain(dh, dl, *pds.split_f64(x), offsets=offsets, n=n)
+    )
+    assert torch.equal(hilo.matvec(x), before)
+
+
+@pytest.mark.parametrize("n", [1256, 1257, 1258, 1259])
+def test_padded_planes_accessors_match_jax(n):
+    """Every accessor reads the first n columns of the padded planes:
+    bitwise the JAX format's (padded to its chunk)."""
+    offsets = (-16, -1, 0, 1, 16)
+    jh, ph = _jax_and_port_hilo(n, offsets, seed=n)
+    assert ph.data_hi.shape[1] > n or n % pf.PLANE_ALIGN == 0
+    np.testing.assert_array_equal(ph.to_dia().data.numpy(), np.asarray(jh.to_dia().data))
+    np.testing.assert_array_equal(ph.data.numpy(), np.asarray(jh.data))
+    np.testing.assert_array_equal(ph.diagonal().numpy(), np.asarray(jh.diagonal()))
+    np.testing.assert_array_equal(
+        ph.row_abs_sums().numpy(), np.abs(np.asarray(jh.data)).sum(axis=0)
+    )
+    np.testing.assert_array_equal(ph.to_dense().numpy(), np.asarray(jh.to_dense()))
+    u = np.random.default_rng(8).standard_normal(n)
+    np.testing.assert_array_equal(
+        ph.rmatvec(_t(u)).numpy(), np.asarray(jh.rmatvec(jnp.asarray(u)))
+    )
+    for i, j in [(0, 0), (n - 1, n - 1), (n - 1, n - 2), (n - 17, n - 1)]:
+        assert float(ph.element(i, j)) == float(jh.element(i, j))
+    assert ph.nnz == jh.nnz == 5 * n
+
+
+def test_host_split_planes_equal_from_dia(monkeypatch):
+    """The route's host split (``dia_device_from_scipy``) pads and splits
+    exactly as ``from_dia`` does on the device."""
+    n = 1003
+    A = sps.diags(
+        [np.full(n - 31, np.pi), np.full(n, 2.0 / 3.0), np.full(n - 1, -np.e)],
+        [-31, 0, 1],
+    ).tocsr()
+    monkeypatch.setattr(pf, "hilo_route", lambda *args, **kwargs: True)
+    routed = pf.dia_device_from_scipy(A, device="cpu")
+    assert isinstance(routed, pf.DiaHiLoMatrix)
+    ref = pf.DiaHiLoMatrix.from_dia(pf.dia_from_scipy(A, device="cpu"))
+    assert torch.equal(routed.data_hi, ref.data_hi)
+    assert torch.equal(routed.data_lo, ref.data_lo)
 
 
 @pytest.mark.parametrize("d", [7, 33, 40])
@@ -331,6 +441,30 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         )
     with pytest.raises(ValueError):
         stream.stream_scale2(torch.ones(4, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        stream.stream_scale2(torch.ones(4), variant="unknown")
+
+
+def test_f64_wrapper_rejects_what_the_kernel_does_not_take():
+    n, offsets = 10, (-1, 0, 1)
+    dh = torch.ones((3, 12))
+    x = torch.ones(n, dtype=torch.float64)
+    assert pds.dia_spmv_ds_f64(dh, dh, x, offsets=offsets, n=n).dtype == torch.float64
+    with pytest.raises(TypeError):
+        pds.dia_spmv_ds_f64(dh, dh, x.float(), offsets=offsets, n=n)
+    with pytest.raises(TypeError):
+        pds.dia_spmv_ds_f64(dh.double(), dh.double(), x, offsets=offsets, n=n)
+    with pytest.raises(ValueError):
+        pds.dia_spmv_ds_f64(dh, dh, x[:9], offsets=offsets, n=n)
+    with pytest.raises(ValueError):
+        pds.dia_spmv_ds_f64(dh, dh, torch.ones(11, dtype=torch.float64),
+                            offsets=offsets, n=n)
+    with pytest.raises(ValueError):
+        pds.dia_spmv_ds_f64(dh, dh, x.to("meta"), offsets=offsets, n=n)
+    with pytest.raises(ValueError):
+        pds.dia_spmv_ds_f64(dh[:, :9], dh[:, :9], x, offsets=offsets, n=n)
+    with pytest.raises(ValueError):
+        pds.dia_spmv_ds_f64(dh.t().contiguous().t(), dh, x, offsets=offsets, n=n)
 
 
 def test_cpu_paths_launch_no_kernel():
@@ -339,6 +473,11 @@ def test_cpu_paths_launch_no_kernel():
         dia_from_numpy(_random_dia(64, (-8, 0, 8)), (-8, 0, 8), 64, 64, device="cpu")
     )
     hilo.matvec(torch.ones(64, dtype=torch.float64))
+    pds.dia_spmv_ds_f64(
+        hilo.data_hi, hilo.data_lo, torch.ones(64, dtype=torch.float64),
+        offsets=hilo.offsets, n=64,
+    )
     x = torch.randn(1001, dtype=torch.float32)
-    assert torch.equal(stream.stream_scale2(x), x * 2)
+    for variant in stream.VARIANTS:
+        assert torch.equal(stream.stream_scale2(x, variant), x * 2)
     assert (pds.LAUNCHES, stream.LAUNCHES) == before
