@@ -9,10 +9,9 @@ Phases, each printing JSON lines and its wall time:
 1. environment: the card's name and power limit (``nvidia-smi``), the
    build of every kernel under ``spectra_tpu_torch/csrc`` (one ``nvcc``
    per source, all at once), and a check that f32 products are not TF32;
-2. the streaming probe ``y = 2 x`` over 2^28 f32 (1 GiB), every variant
-   of its kernel bitwise against ``x * 2`` and timed beside
-   ``torch.mul(x, 2)``: the card's measured bytes per second beside the
-   data sheet;
+2. the streaming probe ``y = 2 x`` over 2^28 f32 (1 GiB), bitwise
+   against ``x * 2`` and timed beside ``torch.mul(x, 2)``: the card's
+   measured bytes per second beside the data sheet;
 3. K1 (the DIA SpMV) against its plain PyTorch version on the card;
 4. K2 (the double-single hi/lo DIA SpMV) against its plain versions, at
    the north star's operator (3-D g=243, n = 14,348,907), its multigrid
@@ -522,25 +521,23 @@ def profile_start(torch, stt, op, v0):
 
 
 def phase_stream(torch, smod, bandwidth):
-    """The streaming probe over 2^28 f32, every variant bitwise against
-    ``x * 2``, then timed in two passes (the second in reverse order)
-    beside ``torch.mul(x, 2)``, 20 calls each per pass, L2 flushed: the
-    default variant's rate is the card's measured stream rate. The
-    counter is set to 0 after the comparisons and read after the
-    timing."""
+    """The streaming probe over 2^28 f32, bitwise against ``x * 2``, then
+    timed in two passes beside ``torch.mul(x, 2)`` (the kernel first, then
+    the call first), 20 calls each per pass, L2 flushed: its rate is the
+    card's measured stream rate. The counter is set to 0 after the
+    comparison and read after the timing, so it counts the timed
+    launches."""
     n = 1 << 28
     x = torch.randn(n, dtype=torch.float32, device="cuda")
     timer = Timer(torch)
+    y = smod.stream_scale2(x)
     ref = smod.stream_scale2_plain(x)
-    errs = {}
-    for variant in smod.VARIANTS:
-        y = smod.stream_scale2(x, variant)
-        torch.cuda.synchronize()
-        errs[variant] = (float((y - ref).abs().max()), bool(torch.equal(y, ref)))
-        del y
-    del ref
-    calls = {f"kernel_{v}": (lambda v=v: smod.stream_scale2(x, v)) for v in smod.VARIANTS}
-    calls["library_torch_mul"] = lambda: torch.mul(x, 2.0)
+    torch.cuda.synchronize()
+    err = float((y - ref).abs().max())
+    bitwise = bool(torch.equal(y, ref))
+    del y, ref
+    calls = dict(kernel=lambda: smod.stream_scale2(x),
+                 library=lambda: torch.mul(x, 2.0))
     times = {k: [] for k in calls}
     torch.cuda.synchronize()
     smod.LAUNCHES = 0
@@ -551,30 +548,21 @@ def phase_stream(torch, smod, bandwidth):
     launches = smod.LAUNCHES
     plain_ms = timer.cold(lambda: smod.stream_scale2_plain(x), reps=20)
     bytes_moved = 8 * n
-    med = {k: float(np.median(v)) for k, v in times.items()}
-    library_ms = med["library_torch_mul"]
-    variants = {
-        v: dict(ms=med[f"kernel_{v}"], gb_s=bytes_moved / (med[f"kernel_{v}"] * 1e-3) / 1e9,
-                over_library=med[f"kernel_{v}"] / library_ms, max_abs_err=errs[v][0],
-                bitwise_equal=errs[v][1])
-        for v in smod.VARIANTS
-    }
-    ms = med[f"kernel_{smod.DEFAULT_VARIANT}"]
+    ms, library_ms = (float(np.median(times[k])) for k in ("kernel", "library"))
     out = dict(
-        n=n, bytes=bytes_moved, variant=smod.DEFAULT_VARIANT, ms=ms,
-        plain_ms=plain_ms, library_ms=library_ms,
+        n=n, bytes=bytes_moved, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        over_library=ms / library_ms,
         bound_ms=bytes_moved / bandwidth * 1e3, bound_by="bytes",
         gb_s=bytes_moved / (ms * 1e-3) / 1e9,
         library_gb_s=bytes_moved / (library_ms * 1e-3) / 1e9,
         plain_gb_s=bytes_moved / (plain_ms * 1e-3) / 1e9,
-        datasheet_gb_s=bandwidth / 1e9, launches=launches,
-        max_abs_err=max(e for e, _ in errs.values()),
-        bitwise_equal=all(b for _, b in errs.values()), variants=variants,
+        datasheet_gb_s=bandwidth / 1e9, launches=launches, max_abs_err=err,
+        bitwise_equal=bitwise,
         enqueue_us=enqueue_us(torch, lambda: smod.stream_scale2(x), 20),
     )
     emit(phase="stream_probe", kernel="stream_scale", **out)
-    if not out["bitwise_equal"]:
-        raise RuntimeError(f"stream_scale disagrees with x * 2: {errs}")
+    if not bitwise:
+        raise RuntimeError("stream_scale disagrees with x * 2")
     return out
 
 
@@ -1132,12 +1120,14 @@ def phase_north_star_levels(torch, dsmod, dmod, pf, mg, counts, rates):
     """Each level of the north star's built hierarchy (``mg.ops``) timed
     as the V-cycle calls it (``level.matvec``), L2 flushed, beside its
     bound, its plain version, one ``torch.sparse`` CSR product and its
-    launches per run of the north star, from the run's V-cycles and
-    solves: level 0 makes nu1 + 1 + nu2 SpMVs per V-cycle, one more for
-    ``mg_solve``'s residual and two per solve; every other level
-    nu1 + 1 + nu2 per V-cycle. Levels 0-1 run K2's f64 entry, the others
-    K1. The per-level launches must add up to the run's K2 and K1
-    counts."""
+    launches per run of the north star. The counters count launches per
+    kernel, not per level, so each level's launches are derived from the
+    run's counted V-cycles and solves: level 0 makes nu1 + 1 + nu2 SpMVs
+    per V-cycle, one more for ``mg_solve``'s residual and two per solve;
+    every other level nu1 + 1 + nu2 per V-cycle. Levels 0-1 run K2's f64
+    entry, the others K1. Only the sums are checked: the derived
+    launches of the K2 levels must add up to the run's counted K2
+    launches, those of the K1 levels to its counted K1 launches."""
     bandwidth, f64_rate, f32_rate = rates
     k1, k2, cycles, solves = counts
     timer = Timer(torch)
@@ -1298,7 +1288,7 @@ def main():
             "stream_scale", stream_t["launches"], stream_t["max_abs_err"],
             stream_t, "n=2^28, float32",
             gb_s=stream_t["gb_s"], datasheet_gb_s=stream_t["datasheet_gb_s"],
-            variant=stream_t["variant"], variants=stream_t["variants"],
+            over_library=stream_t["over_library"],
             launches_path="the stream-probe phase (a probe, on no solver path)",
         ),
         kernel_entry(

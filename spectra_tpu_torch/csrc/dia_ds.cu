@@ -61,11 +61,11 @@
 // count. x is read through L1/L2 (__ldg, 8 bytes in the f64 entry): a
 // thread's rows and its warp's neighbours re-read neighbouring values
 // from L1, and the +-g and +-g^2 windows of a 3-D stencil (about 1 MB at
-// g=243) stay in L2. y is written with streaming stores (__stcs). On the
-// card, four rows a thread with 16-byte loads was slower than two at
-// both north-star levels, one row was no faster, groups of eight
-// diagonals were no faster than four, and plain loads and stores were
-// slower than the hints. The vector loads need the planes' leading
+// g=243) stay in L2. y is written with streaming stores (__stcs). On an
+// H100 (PERF.md), one row a thread was 2.4 % slower at g=243 and 1.2 %
+// at multigrid level 1, four rows with 16-byte loads 2-10 % slower, groups
+// of eight diagonals no faster than four, and plain loads and stores up
+// to 1.9 % slower than the hints. The vector loads need the planes' leading
 // dimension ld to be a multiple of kRows and the planes aligned
 // (DiaHiLoMatrix pads ld to a multiple of 32); other planes take the same
 // body with 4-byte loads. Rows whose columns may leave [0, n), and a last

@@ -10,33 +10,15 @@
 // element and does one multiply (exact: a power of two), so 2^28
 // elements move 2 GiB, 641 us at an H100 SXM's 3.35 TB/s.
 //
-// Variants, chosen by the caller (the index below); chip_smoke.py times
-// each beside torch.mul(x, 2), and ops/stream.py names the one it uses by
-// default. A tile is threads x unroll float4, streamed by one block in
-// ascending order, each warp instruction 512 contiguous bytes; "hints"
-// means evict-first loads (__ldcs) and streaming stores (__stcs).
-//   0 tiles:          256 x 4 (16 KB), hints; the grid is the number of
-//                     blocks the card holds at once, block b takes tiles
-//                     b, b + grid, ...
-//   1 one_shot:       256 x 4, hints, one block per tile.
-//   2 one_shot_plain: 256 x 4, no hints, one block per tile.
-//   3 one_shot_load_hint: 256 x 4, evict-first loads, plain stores.
-//   4 flat:           128 x 1 (2 KB), hints, one block per tile.
-//   5 flat_plain:     128 x 1, no hints, one block per tile (the layout of
-//                     PyTorch's own vectorized elementwise kernels).
-//   6 bulk:           a double-buffered bulk copy per block (Hopper's TMA
-//                     for 1-D data): one thread moves each 16 KB tile from
-//                     device memory to shared memory with cp.async.bulk,
-//                     completion on an mbarrier, the block doubles it in
-//                     place, and the same thread copies it back with
-//                     cp.async.bulk; four tiles in flight per block.
-//   7 rounds:         the layout of the probe's first version: a
-//                     grid-stride loop in which each thread's four float4
-//                     loads of a round lie threads x 16 B apart, over twice
-//                     the resident grid, no hints.
-// Every variant ends with a loop over the float4s past the last whole
-// tile and a scalar loop over the n mod 4 tail. The wrapper passes
-// 16-byte-aligned tensors (PyTorch's allocations are).
+// The layout of PyTorch's own vectorized elementwise kernels: one float4
+// per thread, 128-thread blocks, one block per 2 KB tile and a grid that
+// covers x once, plain loads and stores. Each warp instruction moves 512
+// contiguous bytes. On an H100 this ran at torch.mul's rate, where larger
+// tiles, a grid of resident blocks striding over tiles, evict-first and
+// streaming cache hints, and a double-buffered bulk copy (cp.async.bulk)
+// through shared memory were all 1-8 % slower (PERF.md). The n mod 4 tail
+// is done by the first threads of the grid, one float each. The wrapper
+// passes 16-byte-aligned tensors (PyTorch's allocations are).
 
 #include <cuda_runtime.h>
 
@@ -44,242 +26,37 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kUnroll = 4;                       // float4 per thread per tile
-constexpr int kTile4 = kThreads * kUnroll;       // float4 per tile (16 KB)
-constexpr int kFlatThreads = 128;                // the flat variants' blocks
-constexpr int kStages = 4;                       // bulk variant's tiles in flight
-constexpr int kTileBytes = kTile4 * 16;
-constexpr int kBulkSmem = kStages * kTileBytes;  // 64 KB
-constexpr int64_t kRoundsBlocks = 132 * 16;
-
-__device__ __forceinline__ float4 twice(float4 v) {
-  v.x = __fmul_rn(v.x, 2.0f);
-  v.y = __fmul_rn(v.y, 2.0f);
-  v.z = __fmul_rn(v.z, 2.0f);
-  v.w = __fmul_rn(v.w, 2.0f);
-  return v;
-}
-
-// float4s [from4, n4) and floats [4 n4, n), spread over the whole grid.
-__device__ __forceinline__ void tail(const float4* __restrict__ x4,
-                                     float4* __restrict__ y4, int64_t from4,
-                                     int64_t n4, const float* __restrict__ x,
-                                     float* __restrict__ y, int64_t n) {
-  const int64_t threads = int64_t(gridDim.x) * blockDim.x;
-  const int64_t start = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  for (int64_t i = from4 + start; i < n4; i += threads) y4[i] = twice(x4[i]);
-  for (int64_t i = 4 * n4 + start; i < n; i += threads) {
-    y[i] = __fmul_rn(x[i], 2.0f);
-  }
-}
-
-template <int kT, int kU, bool kLoadHint, bool kStoreHint>
-__global__ void __launch_bounds__(kT)
-    scale2_tiles(const float4* __restrict__ x4, float4* __restrict__ y4,
-                 int64_t n4, const float* __restrict__ x,
-                 float* __restrict__ y, int64_t n) {
-  constexpr int kTile = kT * kU;
-  const int64_t tiles = n4 / kTile;
-  for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const int64_t base = t * kTile + threadIdx.x;
-    float4 v[kU];
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      v[u] = kLoadHint ? __ldcs(x4 + base + u * kT) : x4[base + u * kT];
-    }
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      if (kStoreHint) {
-        __stcs(y4 + base + u * kT, twice(v[u]));
-      } else {
-        y4[base + u * kT] = twice(v[u]);
-      }
-    }
-  }
-  tail(x4, y4, tiles * kTile, n4, x, y, n);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar), "r"(kTileBytes) : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(dst), "l"(src), "r"(kTileBytes),
-      "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  }
-}
+constexpr int kThreads = 128;
 
 __global__ void __launch_bounds__(kThreads)
-    scale2_bulk(const float4* __restrict__ x4, float4* __restrict__ y4,
-                int64_t n4, const float* __restrict__ x,
-                float* __restrict__ y, int64_t n) {
-  extern __shared__ __align__(128) float4 buf[];  // kStages tiles
-  __shared__ __align__(8) uint64_t bars[kStages];
-  const int64_t tiles = n4 / kTile4;
-  // This block's tiles: blockIdx.x + m * gridDim.x, m = 0 .. mine - 1.
-  const int64_t mine =
-      tiles > blockIdx.x ? (tiles - blockIdx.x + gridDim.x - 1) / gridDim.x
-                         : 0;
-  const bool leader = threadIdx.x == 0;
-  if (leader) {
-    for (int s = 0; s < kStages; ++s) {
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                       smem_addr(&bars[s])), "r"(1) : "memory");
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    scale2(const float4* __restrict__ x4, float4* __restrict__ y4, int64_t n4,
+           const float* __restrict__ x, float* __restrict__ y, int64_t n) {
+  const int64_t i = int64_t(blockIdx.x) * kThreads + threadIdx.x;
+  if (i < n4) {
+    float4 v = x4[i];
+    v.x = __fmul_rn(v.x, 2.0f);
+    v.y = __fmul_rn(v.y, 2.0f);
+    v.z = __fmul_rn(v.z, 2.0f);
+    v.w = __fmul_rn(v.w, 2.0f);
+    y4[i] = v;
   }
-  __syncthreads();
-  auto tile_of = [&](int64_t m) { return blockIdx.x + m * gridDim.x; };
-  if (leader) {
-    for (int64_t m = 0; m < kStages && m < mine; ++m) {
-      bulk_load(smem_addr(buf + m * kTile4), x4 + tile_of(m) * kTile4,
-                smem_addr(&bars[m]));
-    }
-  }
-  for (int64_t m = 0; m < mine; ++m) {
-    const int s = static_cast<int>(m % kStages);
-    float4* tile = buf + s * kTile4;
-    bar_wait(smem_addr(&bars[s]), static_cast<uint32_t>((m / kStages) & 1));
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      float4* p = tile + u * kThreads + threadIdx.x;
-      *p = twice(*p);
-    }
-    // Make the block's shared-memory writes visible to the bulk copy.
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();
-    if (leader) {
-      asm volatile(
-          "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::
-              "l"(y4 + tile_of(m) * kTile4),
-          "r"(smem_addr(tile)), "r"(kTileBytes) : "memory");
-      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-      if (m + kStages < mine) {
-        // The store must have read this stage before the next load fills it.
-        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-        bulk_load(smem_addr(tile), x4 + tile_of(m + kStages) * kTile4,
-                  smem_addr(&bars[s]));
-      }
-    }
-  }
-  if (leader) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-  tail(x4, y4, tiles * kTile4, n4, x, y, n);
-}
-
-__global__ void __launch_bounds__(kThreads)
-    scale2_rounds(const float4* __restrict__ x4, float4* __restrict__ y4,
-                  int64_t n4, const float* __restrict__ x,
-                  float* __restrict__ y, int64_t n) {
-  const int64_t threads = int64_t(gridDim.x) * blockDim.x;
-  const int64_t start = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int64_t groups = n4 / (kUnroll * threads);  // full rounds
-  for (int64_t g = 0; g < groups; ++g) {
-    const int64_t base = g * kUnroll * threads + start;
-    float4 v[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) v[u] = x4[base + u * threads];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) y4[base + u * threads] = twice(v[u]);
-  }
-  tail(x4, y4, groups * kUnroll * threads, n4, x, y, n);
-}
-
-// Blocks of `kernel` that the current device holds at once.
-int resident_blocks(const void* kernel, int threads, int smem) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
-                                                smem);
-  return sms * per_sm;
-}
-
-template <int kT, int kU, bool kLoadHint, bool kStoreHint>
-void launch_tiles(const float* x, float* y, int64_t n, bool resident,
-                  cudaStream_t st) {
-  auto* kernel = scale2_tiles<kT, kU, kLoadHint, kStoreHint>;
-  int64_t blocks = n / 4 / (kT * kU);
-  if (resident) {
-    const int64_t r =
-        resident_blocks(reinterpret_cast<const void*>(kernel), kT, 0);
-    if (blocks > r) blocks = r;
-  }
-  if (blocks < 1) blocks = 1;
-  kernel<<<dim3(static_cast<unsigned>(blocks)), kT, 0, st>>>(
-      reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(y), n / 4,
-      x, y, n);
+  if (4 * n4 + i < n) y[4 * n4 + i] = __fmul_rn(x[4 * n4 + i], 2.0f);
 }
 
 }  // namespace
 
 extern "C" {
 
-// variant: the index of the note above.
 int spectra_stream_scale2_f32(const float* x, float* y, int64_t n,
-                              int variant, void* stream) {
-  if (n < 1 || variant < 0 || variant > 7) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+                              void* stream) {
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t n4 = n / 4;
-  const int64_t tiles = n4 / kTile4;
-  const auto* x4 = reinterpret_cast<const float4*>(x);
-  auto* y4 = reinterpret_cast<float4*>(y);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (variant) {
-    case 0:
-      launch_tiles<kThreads, kUnroll, true, true>(x, y, n, true, st);
-      break;
-    case 1:
-      launch_tiles<kThreads, kUnroll, true, true>(x, y, n, false, st);
-      break;
-    case 2:
-      launch_tiles<kThreads, kUnroll, false, false>(x, y, n, false, st);
-      break;
-    case 3:
-      launch_tiles<kThreads, kUnroll, true, false>(x, y, n, false, st);
-      break;
-    case 4:
-      launch_tiles<kFlatThreads, 1, true, true>(x, y, n, false, st);
-      break;
-    case 5:
-      launch_tiles<kFlatThreads, 1, false, false>(x, y, n, false, st);
-      break;
-    case 6: {
-      cudaFuncSetAttribute(scale2_bulk,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           kBulkSmem);
-      int64_t blocks = resident_blocks(
-          reinterpret_cast<const void*>(scale2_bulk), kThreads, kBulkSmem);
-      if (blocks > tiles) blocks = tiles;
-      if (blocks < 1) blocks = 1;
-      scale2_bulk<<<dim3(static_cast<unsigned>(blocks)), kThreads, kBulkSmem,
-                    st>>>(x4, y4, n4, x, y, n);
-      break;
-    }
-    default: {
-      int64_t blocks = (n4 / kUnroll + kThreads - 1) / kThreads;
-      if (blocks > kRoundsBlocks) blocks = kRoundsBlocks;
-      if (blocks < 1) blocks = 1;
-      scale2_rounds<<<dim3(static_cast<unsigned>(blocks)), kThreads, 0,
-                      st>>>(x4, y4, n4, x, y, n);
-    }
-  }
+  int64_t blocks = (n4 + kThreads - 1) / kThreads;
+  if (blocks < 1) blocks = 1;  // n < 4: the tail alone
+  scale2<<<dim3(static_cast<unsigned>(blocks)), kThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(y), n4, x,
+      y, n);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -8,10 +8,8 @@ memory bound that the port reports.
 
 :func:`stream_scale2` launches ``csrc/stream_scale.cu`` for a tensor on
 the card and runs :func:`stream_scale2_plain` for one on the CPU. The
-multiply by two is exact, so the two agree bitwise. The kernel has the
-:data:`VARIANTS` that ``chip_smoke.py`` times side by side (see the
-source's note); :data:`DEFAULT_VARIANT` is the fastest of them on an
-H100 (``PERF.md``). ``LAUNCHES`` counts kernel launches (CUDA only).
+multiply by two is exact, so the two agree bitwise. ``LAUNCHES`` counts
+kernel launches (CUDA only).
 """
 
 import ctypes
@@ -22,13 +20,6 @@ from spectra_tpu_torch.ops import _build
 
 #: Kernel launches since import (or since a caller reset it to 0).
 LAUNCHES = 0
-
-#: The kernel's layouts, by the index the C function takes.
-VARIANTS = (
-    "tiles", "one_shot", "one_shot_plain", "one_shot_load_hint", "flat",
-    "flat_plain", "bulk", "rounds",
-)
-DEFAULT_VARIANT = "flat_plain"
 
 _KERNEL: list = []
 
@@ -41,20 +32,16 @@ def _kernel():
     if not _KERNEL:
         fn = _build.load("stream_scale").spectra_stream_scale2_f32
         fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-            ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p
         ]
         fn.restype = ctypes.c_int
         _KERNEL.append(fn)
     return _KERNEL[0]
 
 
-def stream_scale2(x, variant: str = DEFAULT_VARIANT):
-    """``2 x`` for a contiguous 1-D float32 tensor; ``variant`` names the
-    kernel's layout (:data:`VARIANTS`)."""
+def stream_scale2(x):
+    """``2 x`` for a contiguous 1-D float32 tensor."""
     global LAUNCHES
-    if variant not in VARIANTS:
-        raise ValueError(f"variant must be one of {VARIANTS}")
     if x.ndim != 1 or x.numel() < 1 or x.dtype != torch.float32:
         raise ValueError("x must be a non-empty 1-D float32 tensor")
     if not x.is_contiguous():
@@ -68,10 +55,7 @@ def stream_scale2(x, variant: str = DEFAULT_VARIANT):
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _kernel()(
-            x.data_ptr(), y.data_ptr(), x.numel(), VARIANTS.index(variant),
-            stream,
-        )
+        err = _kernel()(x.data_ptr(), y.data_ptr(), x.numel(), stream)
     if err != 0:
         raise RuntimeError(f"stream_scale kernel launch failed: CUDA error {err}")
     LAUNCHES += 1

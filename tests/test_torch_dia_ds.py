@@ -441,8 +441,6 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         )
     with pytest.raises(ValueError):
         stream.stream_scale2(torch.ones(4, dtype=torch.float64))
-    with pytest.raises(ValueError):
-        stream.stream_scale2(torch.ones(4), variant="unknown")
 
 
 def test_f64_wrapper_rejects_what_the_kernel_does_not_take():
@@ -478,6 +476,5 @@ def test_cpu_paths_launch_no_kernel():
         offsets=hilo.offsets, n=64,
     )
     x = torch.randn(1001, dtype=torch.float32)
-    for variant in stream.VARIANTS:
-        assert torch.equal(stream.stream_scale2(x, variant), x * 2)
+    assert torch.equal(stream.stream_scale2(x), x * 2)
     assert (pds.LAUNCHES, stream.LAUNCHES) == before
