@@ -12,7 +12,14 @@ Phases, each printing JSON lines and its wall time:
 2. the streaming probe ``y = 2 x`` over 2^28 f32 (1 GiB), bitwise
    against ``x * 2`` and timed beside ``torch.mul(x, 2)``: the card's
    measured bytes per second beside the data sheet;
-3. K1 (the DIA SpMV) against its plain PyTorch version on the card;
+3. K1 (the DIA SpMV), f64 and f32, vector and matmat, and P3
+   ``dia_noshift`` (K1's body without the shifted reads) bitwise against
+   their plain PyTorch versions on the card, random data at the
+   out-of-range positions included;
+3b. ``k1_levels``: K1 at the shapes of the north star's coarse levels
+   (27-point, 61^3, 31^3, 16^3), cold (median, min, max), back to back,
+   beside its bound, plain version, CSR call and launch floor (n=1,
+   d=1);
 4. K2 (the double-single hi/lo DIA SpMV) against its plain versions, at
    the north star's operator (3-D g=243, n = 14,348,907), its multigrid
    level 1 and shapes with n of every residue mod 4, all three entry
@@ -53,6 +60,13 @@ launch counters to 0 just before it and reads them just after. Any
 failed check raises, so the script exits non-zero and prints no ``ok``
 line. Without a CUDA device it exits with code 2 before any phase. Only
 the port is imported, never jax or the JAX package.
+
+    python3 chip_smoke.py --k1-parent CHECKOUT
+
+runs only the environment phase and K1 and P3 of the checkout at
+``CHECKOUT``, through its own wrappers, against this tree's, in turns
+(parent, change, change, parent), at every K1 shape of the paths, P5's
+and P3's and the launch floor.
 """
 
 import json
@@ -74,6 +88,11 @@ CARDS = {
 G_FULL = 1000  # the 1M-node 2-D Laplacian of BASELINE config #2
 G_NORTH = 243  # the 3-D Laplacian of the north star: 100,088,055 nnz
 DEGREE = 120
+#: (MG level, g) of the north star's levels that run on K1: 27-point
+#: stencils on g^3 grids.
+K1_LEVELS = ((2, 61), (3, 31), (4, 16))
+#: g of config #3's coarse levels 1-4: 9-point stencils on g^2 grids.
+CONFIG3_COARSE = (500, 250, 125, 63)
 REPLACES = {
     "dia_spmv": (
         "spectra_tpu/ops/dia_pallas.py:45",
@@ -206,19 +225,35 @@ def card_rates(name):
 class Timer:
     """CUDA-event timing. ``cold`` flushes the 50 MB L2 before each
     call (the solver loop touches other vectors between SpMVs) and
-    times each call alone; the median is returned, in ms."""
+    times each call alone; the median is returned, in ms. ``stats``
+    gives the median, min and max of the same samples, ``back_to_back``
+    the card's time per call with no host in the way.
+
+    The flush reads 256 MB, so the L2 holds clean lines when the call
+    starts (a flush that writes leaves 50 MB of dirty lines whose
+    write-back falls into the timed call: up to 10 us at K1's 61^3
+    level, PERF.md). A spin kernel of ``HOLD_CYCLES`` holds the stream
+    while the host enqueues all the samples: without it a call whose
+    host side outlasts the flush left the card idle between the start
+    event and the kernel, and that gap was timed (the bimodal K1 times
+    at 16^3 that PERF.md records)."""
+
+    HOLD_CYCLES = 40_000_000  # 20 ms at the H100's 1.98 GHz, or longer
 
     def __init__(self, torch):
         self.torch = torch
-        self.flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+        self.flush = torch.ones(64 << 20, dtype=torch.float32, device="cuda")
+        self.sink = torch.empty((), dtype=torch.float32, device="cuda")
 
     def samples(self, fn, reps=40):
         """ms of each of ``reps`` calls, the L2 flushed before each."""
         torch = self.torch
         fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(self.HOLD_CYCLES)
         pairs = []
         for _ in range(reps):
-            self.flush.zero_()
+            torch.sum(self.flush, dim=0, out=self.sink)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -230,6 +265,36 @@ class Timer:
 
     def cold(self, fn, reps=40):
         return float(np.median(self.samples(fn, reps)))
+
+    def stats(self, fn, reps=40):
+        """Median (``ms``), ``min_ms`` and ``max_ms`` of ``samples``."""
+        t = self.samples(fn, reps)
+        return dict(ms=float(np.median(t)), min_ms=float(min(t)), max_ms=float(max(t)))
+
+    def back_to_back(self, fn, calls=200):
+        """ms per call of ``calls`` calls captured in one CUDA graph and
+        replayed, no flush: the card's time per launch without the host
+        (the outputs of the captured calls share the graph's pool)."""
+        torch = self.torch
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                fn()
+        graph.replay()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        graph.replay()
+        e.record()
+        torch.cuda.synchronize()
+        del graph
+        return s.elapsed_time(e) / calls
 
     def chained(self, step, x, iters=200):
         """ms per ``x = step(x)`` over ``iters`` chained calls."""
@@ -269,10 +334,17 @@ def phase_environment(torch):
     return name, smi
 
 
-def check_kernel(torch, dmod, pf):
-    """Kernel against plain on the card. Expected: bitwise equal
-    (-fmad=false); the stated tolerance is 1e-13 * max|y| in f64 and
-    1e-5 * max|y| in f32. Returns the largest |kernel - plain|."""
+def check_kernel(torch, dmod, vmod, pf):
+    """K1 against its plain version on the card, f64 and f32, vector and
+    matmat; P3 ``dia_noshift`` (K1's body without the shifted reads)
+    against its own at every square f32 case. Tolerance: bitwise (every
+    term a separately rounded product and sum in offset order, x zero
+    outside [0, n_cols) in both); any difference raises. The random
+    cases hold nonzero data at the out-of-range positions; they include
+    the shapes of the north star's K1 levels (d=27) and of config #3's
+    coarse levels (d=9, 500^2 in registers, 250^2 to 63^2 staged), whose
+    built levels are checked again on their own paths. Returns the
+    largest |kernel - plain| (0 when all are bitwise)."""
     import scipy.sparse as sps
 
     rng = np.random.default_rng(0)
@@ -290,42 +362,67 @@ def check_kernel(torch, dmod, pf):
     offsets40 = tuple(
         sorted(int(o) for o in rng.choice(np.arange(-500, 501), 40, replace=False))
     )
+    offsets64 = tuple(
+        sorted(int(o) for o in rng.choice(np.arange(-3000, 3001), 64, replace=False))
+    )
+    top = dmod.STAGED_ROWS_MAX  # staged below, registers from here
+    random_cases = {
+        **{f"stencil27_random_g{g}": (g**3, g**3, stencil27(g)) for _, g in K1_LEVELS},
+        "d1_random_n100003": (100003, 100003, (5,)),
+        "d64_random_n200001": (200001, 200001, offsets64),
+        "n1_d1_random": (1, 1, (0,)),
+        f"staged_n{top - 1}_random": (top - 1, top - 1, (-512, -1, 0, 1, 512)),
+        f"registers_n{top}_random": (top, top, (-512, -1, 0, 1, 512)),
+        # config #3's 2-D Galerkin levels: staged below 2^17 rows, registers at 500^2
+        **{f"stencil9_random_g{g}": (g * g, g * g, stencil9(g)) for g in CONFIG3_COARSE},
+        "rect_40x55_random": (40, 55, (-7, -1, 0, 2, 9)),
+        "rect_55x40_random": (55, 40, (-7, -1, 0, 2, 9)),
+    }
     worst = 0.0
-    for dtype, rtol in ((torch.float64, 1e-13), (torch.float32, 1e-5)):
+    for dtype in (torch.float64, torch.float32):
         mats = {k: pf.dia_from_scipy(A, dtype=dtype) for k, A in cases.items()}
-        mats["banded_17_diagonals"] = pf.DiaMatrix(
-            data=torch.randn((17, 10**6), dtype=dtype, device="cuda"),
-            offsets=offsets17, n_rows=10**6, n_cols=10**6,
-        )
+        mats["banded_17_diagonals"] = random_dia(
+            torch, pf, 10**6, 10**6, offsets17, dtype)
         # 40 diagonals: the most a multigrid level may have
-        mats["banded_40_diagonals"] = pf.DiaMatrix(
-            data=torch.randn((40, 10**5), dtype=dtype, device="cuda"),
-            offsets=offsets40, n_rows=10**5, n_cols=10**5,
-        )
+        mats["banded_40_diagonals"] = random_dia(
+            torch, pf, 10**5, 10**5, offsets40, dtype)
+        for label, (rows, cols, offs) in random_cases.items():
+            mats[label] = random_dia(torch, pf, rows, cols, offs, dtype)
         inputs = [(k, m, torch.randn(m.n_cols, dtype=dtype, device="cuda"))
                   for k, m in mats.items()]
-        big = mats["laplacian_2d_g1000"]
-        inputs.append(("matmat_10_columns_g1000", big, torch.randn(
-            (big.n_cols, 10), dtype=dtype, device="cuda")))
+        for label, cols in (("laplacian_2d_g1000", 10), ("stencil27_random_g31", 10)):
+            m = mats[label]
+            inputs.append((f"matmat_{cols}_columns_{label}", m, torch.randn(
+                (m.n_cols, cols), dtype=dtype, device="cuda")))
         for label, m, x in inputs:
             y = m.matvec(x) if x.ndim == 1 else m.matmat(x)
             ref = dmod.dia_spmv_plain(m.data, m.offsets, x, m.n_cols)
+            checks = [("dia_spmv", y, ref)]
+            if dtype == torch.float32 and x.ndim == 1 and m.n_rows == m.n_cols:
+                checks.append(("dia_noshift", vmod.dia_noshift(m.data, m.offsets, x),
+                               vmod.dia_noshift_plain(m.data, x)))
             torch.cuda.synchronize()
-            err = float((y - ref).abs().max())
-            scale = float(ref.abs().max())
-            ok = err <= rtol * scale
-            emit(phase="kernel_vs_plain", kernel="dia_spmv", case=label,
-                 dtype=str(dtype).split(".")[1], d=len(m.offsets),
-                 n=m.n_rows, max_abs_err=err, max_abs_y=scale,
-                 bitwise_equal=bool(torch.equal(y, ref)), ok=ok)
-            if not ok:
-                raise RuntimeError(f"dia_spmv disagrees with plain on {label}")
-            worst = max(worst, err)
+            for kernel, got, want in checks:
+                err = float((got - want).abs().max())
+                bitwise = bool(torch.equal(got, want))
+                emit(phase="kernel_vs_plain", kernel=kernel, case=label,
+                     dtype=str(dtype).split(".")[1], d=len(m.offsets),
+                     n=m.n_rows, n_cols=m.n_cols, columns=1 if x.ndim == 1 else x.shape[1],
+                     config=dmod.card_launch(m.n_rows, 1 if x.ndim == 1 else x.shape[1], 0),
+                     max_abs_err=err, max_abs_y=float(want.abs().max()),
+                     bitwise_equal=bitwise, ok=bitwise)
+                if not bitwise:
+                    raise RuntimeError(f"{kernel} is not bitwise its plain version on {label}")
+                worst = max(worst, err)
+        del mats, inputs
+    torch.cuda.empty_cache()
     return worst
 
 
 def time_kernel(torch, dmod, pf, rates):
-    """K1 at the full-width shape (d=5, n=10^6), f64 and f32."""
+    """K1 at the full-width shape (d=5, n=10^6), f64 and f32: cold
+    (median, min, max), back to back, chained, beside its bound, plain
+    version and CSR call."""
     bandwidth, f64_rate, f32_rate = rates
     timer = Timer(torch)
     A = laplacian_2d(G_FULL)
@@ -335,7 +432,8 @@ def time_kernel(torch, dmod, pf, rates):
         csr = torch_csr(torch, A, np.dtype(str(dtype).split(".")[1]))
         x = torch.randn(m.n_cols, dtype=dtype, device="cuda")
         d, n, item = len(m.offsets), m.n_rows, x.element_size()
-        kernel_ms = timer.cold(lambda: m.matvec(x))
+        kernel = timer.stats(lambda: m.matvec(x))
+        kernel_ms = kernel["ms"]
         plain_ms = timer.cold(
             lambda: dmod.dia_spmv_plain(m.data, m.offsets, x, m.n_cols)
         )
@@ -346,7 +444,8 @@ def time_kernel(torch, dmod, pf, rates):
         flops = 2 * A.nnz
         bound_ms = max(bytes_moved / bandwidth, flops / rate) * 1e3
         out[str(dtype).split(".")[1]] = dict(
-            ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+            **kernel, plain_ms=plain_ms, library_ms=library_ms,
+            back_to_back_ms=timer.back_to_back(lambda: m.matvec(x)),
             bound_ms=bound_ms,
             bound_by="bytes" if bytes_moved / bandwidth >= flops / rate
             else "operations",
@@ -355,7 +454,7 @@ def time_kernel(torch, dmod, pf, rates):
             chained_ms=chained_ms, gnnz_s=A.nnz / (chained_ms * 1e-3) / 1e9,
             kernel_gnnz_s=A.nnz / (kernel_ms * 1e-3) / 1e9,
             enqueue_us=host_us, bytes=bytes_moved, nnz=int(A.nnz), d=d,
-            n=n,
+            n=n, config=dmod.card_launch(n, 1, 0),
         )
         emit(phase="kernel_timing", kernel="dia_spmv", dtype=str(dtype),
              **out[str(dtype).split(".")[1]])
@@ -771,13 +870,14 @@ def time_ds(torch, dsmod, dmod, timing_cases, rates, stream_gbs):
             ), **modes)
         out[case] = {}
         for name, m in modes.items():
-            ms = timer.cold(m["fn"])
+            kt = timer.stats(m["fn"])
+            ms = kt["ms"]
             plain_ms = timer.cold(m["plain"])
             t_bytes = m["bytes"] / bandwidth
             t_ops = m["ops"] / m["rate"]
             at_stream = m["bytes"] / (stream_gbs * 1e9) * 1e3
             out[case][name] = dict(
-                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                **kt, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=m["bytes"], bound_ms_at_stream_rate=at_stream,
@@ -786,6 +886,11 @@ def time_ds(torch, dsmod, dmod, timing_cases, rates, stream_gbs):
                 gnnz_s=int(A.nnz) / (ms * 1e-3) / 1e9,
                 enqueue_us=enqueue_us(torch, m["fn"]),
             )
+            if name == "A_k1_f64":
+                out[case][name].update(
+                    back_to_back_ms=timer.back_to_back(m["fn"]),
+                    config=dmod.card_launch(n, 1, 0),
+                )
             emit(phase="ds_timing", case=case, mode=name, d=d, n=n, nnz=int(A.nnz),
                  **out[case][name])
         c, c0 = out[case]["C_hilo_matvec_f64_entry"], out[case]["C0_split_k2_combine"]
@@ -798,19 +903,98 @@ def time_ds(torch, dsmod, dmod, timing_cases, rates, stream_gbs):
     return out
 
 
-def timed_entry(timer, fn, plain, library, bytes_moved, ops, rate, bandwidth):
-    """Cold times of a kernel, its plain version and a library call
-    (None: no single PyTorch call computes the function), with the bound
-    from the bytes the function must move and the operations it does."""
-    ms = timer.cold(fn)
+def timed_entry(timer, fn, plain, library, bytes_moved, ops, rate, bandwidth,
+                back_to_back=False):
+    """Cold times of a kernel (median, min and max), its plain version
+    and a library call (None: no single PyTorch call computes the
+    function), with the bound from the bytes the function must move and
+    the operations it does; with ``back_to_back`` also the kernel's
+    back-to-back time."""
+    t = timer.stats(fn)
     t_bytes, t_ops = bytes_moved / bandwidth, ops / rate
-    return dict(
-        ms=ms, plain_ms=timer.cold(plain),
-        library_ms=None if library is None else timer.cold(library),
+    lib = {} if library is None else timer.stats(library)
+    t.update(
+        plain_ms=timer.cold(plain),
+        library_ms=lib.get("ms"), library_min_ms=lib.get("min_ms"),
+        library_max_ms=lib.get("max_ms"),
         bound_ms=max(t_bytes, t_ops) * 1e3,
         bound_by="bytes" if t_bytes >= t_ops else "operations",
-        bytes=bytes_moved, fraction_of_bound=max(t_bytes, t_ops) * 1e3 / ms,
+        bytes=bytes_moved, fraction_of_bound=max(t_bytes, t_ops) * 1e3 / t["ms"],
     )
+    if back_to_back:
+        t["back_to_back_ms"] = timer.back_to_back(fn)
+    return t
+
+
+def launch_floor(torch, dmod, timer):
+    """K1 at n=1, d=1, timed as every K1 shape is: what one launch
+    costs the card whatever its work."""
+    data = torch.randn((1, 1), dtype=torch.float64, device="cuda")
+    x = torch.randn(1, dtype=torch.float64, device="cuda")
+    fn = lambda: dmod.dia_spmv(data, (0,), x, 1)
+    out = timer.stats(fn)
+    out["back_to_back_ms"] = timer.back_to_back(fn)
+    return out
+
+
+def stencil27(g):
+    """The 27 offsets of a 3-D 27-point stencil on a g^3 grid: the
+    pattern of the north star's Galerkin levels 1-4."""
+    return tuple(sorted(a * g * g + b * g + c for a in (-1, 0, 1)
+                        for b in (-1, 0, 1) for c in (-1, 0, 1)))
+
+
+def stencil9(g):
+    """The 9 offsets of a 2-D 9-point stencil on a g^2 grid: the pattern
+    of config #3's Galerkin levels 1-4."""
+    return tuple(sorted(a * g + b for a in (-1, 0, 1) for b in (-1, 0, 1)))
+
+
+def random_dia(torch, pf, n_rows, n_cols, offsets, dtype=None):
+    """A DIA matrix on the card with random data in every position, the
+    out-of-range ones included."""
+    dtype = torch.float64 if dtype is None else dtype
+    return pf.DiaMatrix(
+        data=torch.randn((len(offsets), n_rows), dtype=dtype, device="cuda"),
+        offsets=tuple(offsets), n_rows=n_rows, n_cols=n_cols,
+    )
+
+
+def phase_k1_levels(torch, dmod, pf, rates):
+    """K1 early in the run at the shapes of the north star's K1 levels
+    (MG levels 2-4: 27-point, n = 61^3, 31^3, 16^3; synthetic DIA with
+    random data and the levels' n, d and bytes), timed as
+    ``north_star_level_timing`` times them (L2 flushed, median, min and
+    max of 40) plus back to back, beside the bound, the plain version,
+    the ``torch.sparse`` CSR call and the launch floor (K1 at n=1, d=1).
+    Launches per north-star
+    run are filled in after the north star has run."""
+    bandwidth, f64_rate, _ = rates
+    timer = Timer(torch)
+    floor = launch_floor(torch, dmod, timer)
+    emit(phase="k1_launch_floor", n=1, d=1, **floor)
+    rows = []
+    for level, g in K1_LEVELS:
+        n, offs = g**3, stencil27(g)
+        d = len(offs)
+        m = random_dia(torch, pf, n, n, offs)
+        x = torch.randn(n, dtype=torch.float64, device="cuda")
+        csr = dia_csr(torch, pf, m)
+        terms = sum(n - abs(o) for o in offs)
+        t = timed_entry(
+            timer, lambda: m.matvec(x),
+            lambda: dmod.dia_spmv_plain(m.data, offs, x, n), lambda: csr @ x,
+            (d + 2) * 8 * n, 2 * terms, f64_rate, bandwidth, back_to_back=True,
+        )
+        t.update(level=level, kernel="dia_spmv", dims=[g] * 3, n=n, d=d,
+                 nnz=int(csr.values().numel()), launches=None, card_s_per_run=None,
+                 floor_ms=floor["ms"], floor_back_to_back_ms=floor["back_to_back_ms"],
+                 config=dmod.card_launch(n, 1, 0))
+        emit(phase="k1_levels", **t)
+        rows.append(t)
+        del m, x, csr
+    torch.cuda.empty_cache()
+    return rows, floor
 
 
 def phase_dia_variants(torch, vmod, dmod, pf, rates):
@@ -943,6 +1127,7 @@ def run_config3(torch, stt, dmod, dsmod, pmg, pf):
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     levels = [type(o).__name__ for o in op.mg.ops]
+    level_d = [len(o.offsets) for o in op.mg.ops]
     if not all(isinstance(o, pf.DiaMatrix) for o in op.mg.ops):
         raise RuntimeError("a config #3 level is not a DiaMatrix")
     if op.shifted is not op.mg.ops[0]:
@@ -973,7 +1158,7 @@ def run_config3(torch, stt, dmod, dsmod, pmg, pf):
              restarts=e.num_iterations(), operations=e.num_operations(),
              inner_solves=solves, v_cycles=cycles, k1_launches=k1,
              expected_k1_launches=expected_k1, k2_launches=k2, levels=levels,
-             build_s=build_s, build_parts_s=op.build_s, solve_s=solve_s,
+             level_d=level_d, build_s=build_s, build_parts_s=op.build_s, solve_s=solve_s,
              max_err_vs_analytic=err, history=e.convergence_history())
         if nconv != 10 or e.info() != stt.CompInfo.Successful or err > 1e-9:
             raise RuntimeError(f"config #3 ({label}) did not reach the analytic spectrum")
@@ -982,6 +1167,7 @@ def run_config3(torch, stt, dmod, dsmod, pmg, pf):
                 f"config #3 ({label}): K1 {k1} (expected {expected_k1}), K2 {k2}"
             )
         runs[label] = (vals, k1, solve_s, e.num_iterations(), e.num_operations())
+    check_levels(torch, dmod, pf, op.mg, "config3")
     diff = float(np.abs(runs["full"][0] - runs["selective_chunk20"][0]).max())
     emit(phase="config3_selective_vs_full", max_abs_diff=diff,
          solve_s=dict(full=runs["full"][2], selective=runs["selective_chunk20"][2]),
@@ -990,6 +1176,24 @@ def run_config3(torch, stt, dmod, dsmod, pmg, pf):
     if diff > 1e-12:
         raise RuntimeError(f"config #3 selective and full disagree by {diff}")
     return runs["selective_chunk20"][1], runs["full"][1]
+
+
+def check_levels(torch, dmod, pf, mg, path):
+    """K1 bitwise against its plain version on each built DIA level of a
+    path's hierarchy (``mg.ops``), after the path's counted run: the
+    launches at the path's own shapes and data. Any difference raises."""
+    for lv, m in enumerate(mg.ops):
+        if type(m) is not pf.DiaMatrix:
+            continue
+        x = torch.randn(m.n_cols, dtype=m.data.dtype, device="cuda")
+        y, ref = m.matvec(x), dmod.dia_spmv_plain(m.data, m.offsets, x, m.n_cols)
+        bitwise = bool(torch.equal(y, ref))
+        emit(phase="kernel_vs_plain", kernel="dia_spmv", case=f"{path}_mg_level{lv}",
+             dtype=str(m.data.dtype).split(".")[1], d=len(m.offsets), n=m.n_rows,
+             n_cols=m.n_cols, config=dmod.card_launch(m.n_rows, 1, 0),
+             max_abs_err=float((y - ref).abs().max()), bitwise_equal=bitwise, ok=bitwise)
+        if not bitwise:
+            raise RuntimeError(f"K1 is not bitwise its plain version on {path} level {lv}")
 
 
 def run_north_star(torch, stt, dmod, dsmod, pmg, pf, A, dia64, matrix_s):
@@ -1100,8 +1304,9 @@ def run_north_star(torch, stt, dmod, dsmod, pmg, pf, A, dia64, matrix_s):
 
 
 def dia_csr(torch, pf, m):
-    """A DIA level (f64 or hi/lo) as a ``torch.sparse`` CSR f64 tensor
-    built on the card, stored zeros dropped: the library call's operand."""
+    """A DIA level (f64, f32 or hi/lo) as a ``torch.sparse`` CSR tensor
+    of its dtype (f64 for hi/lo) built on the card, stored zeros
+    dropped: the library call's operand."""
     data = m.to_dia().data if isinstance(m, pf.DiaHiLoMatrix) else m.data
     n = m.n_rows
     rows = torch.arange(n, device="cuda")
@@ -1147,7 +1352,8 @@ def phase_north_star_levels(torch, dsmod, dmod, pf, mg, counts, rates):
             plain = lambda: dmod.dia_spmv_plain(m.data, offs, x, n)
         csr = dia_csr(torch, pf, m)
         t = timed_entry(timer, lambda: m.matvec(x), plain, lambda: csr @ x,
-                        bytes_moved, ops, rate, bandwidth)
+                        bytes_moved, ops, rate, bandwidth,
+                        back_to_back=not hilo)
         launches = cycles * per_cycle + (cycles + 2 * solves if lv == 0 else 0)
         sums[hilo] += launches
         t.update(level=lv, kernel=kernel, dims=list(mg.dims_per_level[lv]), n=n, d=d,
@@ -1157,6 +1363,7 @@ def phase_north_star_levels(torch, dsmod, dmod, pf, mg, counts, rates):
         rows.append(t)
         del csr, x
     torch.cuda.empty_cache()
+    check_levels(torch, dmod, pf, mg, "north_star")
     if sums[True] != k2 or sums[False] != k1:
         raise RuntimeError(f"per-level launches {sums} do not add up to K2 {k2}, K1 {k1}")
     return rows
@@ -1184,6 +1391,112 @@ def profile_north_star(torch, op, solves=3):
                  inner_solves=solves, v_cycles=pmg.CYCLES - cycles)
 
 
+def parent_ops(torch, parent):
+    """K1 and P3 of the checkout at ``parent`` through its own Python
+    wrappers (``ops/dia_spmv.py``, ``ops/dia_variants.py``), each bound
+    to its own ``csrc`` source built with this tree's flags (one ``nvcc``
+    each, both at once). Returns the two wrapper modules' namespaces."""
+    import ctypes
+    import types
+    from pathlib import Path
+
+    from spectra_tpu_torch.ops import _build
+
+    out_dir = _build.BUILD_DIR.parent / "k1_parent"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    root = Path(parent) / "spectra_tpu_torch"
+    names = ("dia_spmv", "dia_variants")
+    builds = {
+        name: subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out_dir / f"lib{name}.so"),
+             str(root / "csrc" / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for name in names
+    }
+    mods = {}
+    for name in names:
+        log, _ = builds[name].communicate(timeout=600)
+        if builds[name].returncode != 0:
+            raise RuntimeError(f"the parent's {name}.cu did not build:\n{log}")
+        path = root / "ops" / f"{name}.py"
+        ns = {"__name__": f"parent_{name}"}
+        exec(compile(path.read_text(), str(path), "exec"), ns)
+        lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
+        ns["_build"] = types.SimpleNamespace(load=lambda _, lib=lib: lib)
+        mods[name] = types.SimpleNamespace(**ns)
+    return mods["dia_spmv"], mods["dia_variants"]
+
+
+def compare_parent(torch, dmod, vmod, pf, rates, parent):
+    """The parent's K1 and P3 and this tree's, each through its own
+    wrapper, interleaved in one run (parent, change, change, parent) at
+    every K1 shape of the paths: the north star's levels 2-4 (27-point,
+    random data), config #2's (the 2-D g=1000 Laplacian, f64 and f32,
+    and P3 on it in f32), the g=243 operator (7-point, random data, f64
+    as mode A and f32 as P5) and the launch floor (n=1, d=1). Each turn:
+    cold median, min, max (L2 flushed, 40 calls), back to back (200
+    calls in one CUDA graph) and the host's enqueue time per call
+    (``enqueue_us``, the wrapper included). Both outputs must be bitwise
+    equal (the new kernel adds ``data * 0`` where the parent skipped a
+    term: the same sum for finite data)."""
+    bandwidth, f64_rate, f32_rate = rates
+    timer = Timer(torch)
+    old_k1, old_vmod = parent_ops(torch, parent)
+    g2 = laplacian_2d(G_FULL)
+    offs243 = (-G_NORTH**2, -G_NORTH, -1, 0, 1, G_NORTH, G_NORTH**2)
+    shapes = [(f"level{lv}_g{g}", g**3, stencil27(g), torch.float64, "dia_spmv")
+              for lv, g in K1_LEVELS]
+    shapes += [("config2_f64", G_FULL**2, None, torch.float64, "dia_spmv"),
+               ("config2_f32", G_FULL**2, None, torch.float32, "dia_spmv"),
+               ("p3_config2_f32", G_FULL**2, None, torch.float32, "dia_noshift"),
+               ("g243_operator", G_NORTH**3, offs243, torch.float64, "dia_spmv"),
+               ("p5_g243_f32", G_NORTH**3, offs243, torch.float32, "dia_spmv"),
+               ("launch_floor", 1, (0,), torch.float64, "dia_spmv")]
+    out = {}
+    for label, n, offs, dtype, kernel in shapes:
+        if offs is None:
+            m = pf.dia_from_scipy(g2, dtype=dtype)
+        else:
+            m = random_dia(torch, pf, n, n, offs, dtype)
+        x = torch.randn(n, dtype=dtype, device="cuda")
+        offs, d = m.offsets, len(m.offsets)
+        if kernel == "dia_noshift":
+            calls = dict(parent=lambda: old_vmod.dia_noshift(m.data, offs, x),
+                         change=lambda: vmod.dia_noshift(m.data, offs, x))
+        else:
+            calls = dict(parent=lambda: old_k1.dia_spmv(m.data, offs, x, n),
+                         change=lambda: dmod.dia_spmv(m.data, offs, x, n))
+        bitwise = bool(torch.equal(calls["parent"](), calls["change"]()))
+        turns = {"parent": [], "change": []}
+        for who in ("parent", "change", "change", "parent"):
+            t = timer.stats(calls[who])
+            t["back_to_back_ms"] = timer.back_to_back(calls[who])
+            t["enqueue_us"] = enqueue_us(torch, calls[who])
+            turns[who].append(t)
+        csr = None if kernel == "dia_noshift" else dia_csr(torch, pf, m)
+        terms = d * n if kernel == "dia_noshift" else sum(n - abs(o) for o in offs)
+        rate = f64_rate if dtype == torch.float64 else f32_rate
+        bound_ms = max((d + 2) * x.element_size() * n / bandwidth, 2 * terms / rate) * 1e3
+        mean = lambda who, key: float(np.mean([t[key] for t in turns[who]]))
+        out[label] = dict(
+            kernel=kernel, n=n, d=d, dtype=str(dtype).split(".")[1],
+            bitwise_equal_parent=bitwise, config=dmod.card_launch(n, 1, 0),
+            parent=turns["parent"], change=turns["change"],
+            parent_ms=mean("parent", "ms"), change_ms=mean("change", "ms"),
+            parent_enqueue_us=mean("parent", "enqueue_us"),
+            change_enqueue_us=mean("change", "enqueue_us"),
+            library=None if csr is None else timer.stats(lambda: csr @ x),
+            bound_ms=bound_ms,
+        )
+        emit(phase="k1_parent_vs_change", case=label, **out[label])
+        if not bitwise:
+            raise RuntimeError(f"the new {kernel} is not bitwise the parent's on {label}")
+        del m, x, csr
+        torch.cuda.empty_cache()
+    return out
+
+
 def kernel_entry(name, launches, max_abs_err, t, shape, **extra):
     replaces, function = REPLACES[name]
     return dict(
@@ -1198,11 +1511,17 @@ def kernel_entry(name, launches, max_abs_err, t, shape, **extra):
     )
 
 
-def main():
+def main(argv):
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    parent = None
+    if argv[:1] == ["--k1-parent"] and len(argv) == 2:
+        parent = argv[1]
+    elif argv:
+        print("usage: python3 chip_smoke.py [--k1-parent CHECKOUT]", file=sys.stderr)
         return 2
     import spectra_tpu_torch as stt
     from spectra_tpu_torch.linalg import multigrid as pmg
@@ -1224,8 +1543,13 @@ def main():
 
     name, _ = phase("environment", phase_environment, torch)
     rates = card_rates(name)
+    if parent is not None:
+        phase("k1_parent_vs_change", compare_parent, torch, dmod, vmod, pf, rates, parent)
+        emit(phase_walls=walls, total_s=sum(walls.values()))
+        return 0
     stream_t = phase("stream_probe", phase_stream, torch, smod, rates[0])
-    worst_k1 = phase("k1_vs_plain", check_kernel, torch, dmod, pf)
+    worst_k1 = phase("k1_vs_plain", check_kernel, torch, dmod, vmod, pf)
+    k1_levels, k1_floor = phase("k1_levels", phase_k1_levels, torch, dmod, pf, rates)
 
     t0 = time.perf_counter()
     A243 = laplacian_3d(G_NORTH)
@@ -1264,6 +1588,13 @@ def main():
         ns_op.mg, (k1_ns, k2_ns, ns_cycles, ns_solves), rates,
     )
     phase("north_star_profile", profile_north_star, torch, ns_op)
+    for t in k1_levels:  # launches per north-star run, from its levels
+        ns = next((r for r in level_t if r["n"] == t["n"] and r["d"] == t["d"]), None)
+        if ns is None:
+            raise RuntimeError(f"the north star has no K1 level of n={t['n']}, d={t['d']}")
+        t.update(launches=ns["launches"], card_s_per_run=ns["launches"] * t["ms"] * 1e-3)
+        emit(phase="k1_levels_launches", level=t["level"], n=t["n"],
+             launches=t["launches"], card_s_per_run=t["card_s_per_run"])
 
     f64 = timing["float64"]
     c_mode = ds_t["g243"]["C_hilo_matvec_f64_entry"]
@@ -1276,6 +1607,8 @@ def main():
             launches_config3_full_reorth=k1_config3_full,
             launches_north_star=k1_ns,
             north_star_levels=[t for t in level_t if t["kernel"] == "dia_spmv"],
+            k1_levels=k1_levels, launch_floor=k1_floor,
+            mode_a_g243=ds_t["g243"]["A_k1_f64"],
         ),
         kernel_entry(
             "dia_spmv_ds", k2_ns, worst_k2, c_mode,
@@ -1321,4 +1654,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

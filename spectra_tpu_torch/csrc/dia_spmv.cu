@@ -6,108 +6,77 @@
 //
 //     y[i] = sum_k data[k, i] * x[i + off_k],   0 <= i < n_rows,
 //
-// where terms with i + off_k outside [0, n_cols) count as zero, and the
-// sum runs in offset order starting from k = 0, as the Pallas kernel
-// accumulates it. The reference zero-pads x; this kernel guards the
-// index instead and never reads out of bounds.
+// where x counts as zero outside [0, n_cols), summed in offset order
+// from +0, as the plain PyTorch version computes it on its zero-padded
+// x. X and Y may hold several columns (matmat). The body is
+// dia_rows.cuh, shared with the cost probe P3 (dia_variants.cu).
 //
 // What bounds it: memory. Each output row does d multiply-adds against
-// d + 2 values moved, so for d diagonals and n rows the kernel must move
-// (d + 2) * n * sizeof(T) bytes (data once, x once, y once): 56 MB in
-// f64 for the 5-point Laplacian at n = 10^6, about 16.7 us at an H100
-// SXM's 3.35 TB/s, against 10^7 flops that the f64 units finish in
-// under 0.3 us.
+// d + 2 values moved, so for d diagonals and n rows the function must
+// move (d + 2) * n * sizeof(T) bytes (data once, x once, y once): 56 MB
+// in f64 for the 5-point Laplacian at n = 10^6, 16.7 us at an H100
+// SXM's 3.35 TB/s; 52.7 MB (15.7 us) at the north star's 61^3
+// multigrid level (d = 27). At its 31^3 and 16^3 levels (6.9 and
+// 0.95 MB) the bytes take 2.1 and 0.3 us, under one launch: there what
+// bounds it is the latency of one trip to memory per row.
 //
-// What the design does about it: one thread per output row in a
-// grid-stride loop. Consecutive threads read consecutive data[k * n + i]
-// and consecutive (shifted) x[i + off_k], so every load is coalesced.
-// The d shifted reads of x overlap; the re-reads of neighbouring rows
-// and of the +-g stencil rows come from L1 and L2 (the 8 MB x of the
-// 10^6-row case fits the 50 MB L2), so DRAM traffic stays near the
-// (d + 2) * n bound. The offsets travel by value in the launch
-// parameters (at most 64: 512 bytes of int64, far under the launch
-// parameter limit, and above the 40 diagonals a multigrid level may
-// have), so one build serves every stencil; the TPU kernel had to fix
-// them at trace time. A shared-memory x window or TMA is left for later
-// tuning.
+// What held the first version back: one thread per row walked the
+// diagonals in a loop whose trip count was known only at run time, with
+// a branch around each term, so each diagonal's two loads waited on the
+// previous add: 27 dependent trips to memory per row at d = 27. And its
+// 256-thread blocks gave the 4,096 rows of the 16^3 level 16 blocks, on
+// 16 of the card's 132 SMs.
 //
-// Numerics: built with -fmad=false, every term is a rounded multiply
-// followed by a rounded add, so the result is bitwise equal to the
-// plain PyTorch version (separate * and + in the same order).
+// What the design does about it (dia_rows.cuh): every term is added,
+// with x zero outside [0, n_cols), so a row's loads depend on nothing but
+// its index. Each thread issues all loads of its row (groups of eight
+// for a count that is not unrolled; d = 5 for config #2, 9 on config
+// #3's 2-D multigrid levels, 7 on the 3-D operator and 27 on the north
+// star's levels 2-4 are) before the arithmetic. ptxas interleaves plain
+// loads with the adds (32 registers at d = 27: a row still waits on a
+// few trips in turn), so a small matrix stages its loads through
+// shared memory with cp.async instead: all 54 values of a 27-diagonal
+// row in flight at once. The wrapper chooses (ops/dia_spmv.py::
+// launch_config): staged below 2^17 rows, registers above, where the
+// warps of other rows hide the latency and staging costs time; and the
+// largest block that still gives every SM two blocks, so the 4,096
+// rows of the 16^3 level run on 128 SMs. One row a thread: two were no
+// faster at 1M-14.3M rows. Offsets travel by value (at most 64). No
+// shared-memory x window (the probe P4 showed one slower) and no TMA.
 //
-// X and Y may hold several columns (matmat): element (i, c) lives at
-// i * ncol + c in both, and blockIdx.y selects the column.
+// On an NVIDIA H100 80GB HBM3 at 700 W (PERF.md; chip_smoke.py
+// --k1-parent, the first version and this one in turns in one run; cold
+// medians, L2 flushed with clean lines): 16^3 17.0 -> 7.5 us (the CSR
+// call 18.2, the launch floor 5.9); 31^3 17.9 -> 9.5; config #2 f64
+// 24.0 -> 22.1, f32 18.0 -> 14.0; the g=243 operator 367.0 -> 345.5
+// (bound 308.4). At 61^3 staging took 25.5 against 24.9 for the first
+// version and 24.9 for this one in registers (bound 15.7, the floor
+// alone 5.9): there the rows hide the latency either way.
+//
+// Numerics: every term is __dmul_rn/__fmul_rn then __dadd_rn/__fadd_rn,
+// never contracted, so the result is bitwise the plain version's (and
+// the library is built with -fmad=false as well).
 
-#include <cuda_runtime.h>
-
-#include <cstdint>
-
-namespace {
-
-constexpr int kMaxDiags = 64;
-constexpr int kThreads = 256;
-constexpr int64_t kMaxBlocks = 1 << 20;
-
-struct DiaOffsets {
-  int count;
-  int64_t off[kMaxDiags];
-};
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    dia_spmv_kernel(const T* __restrict__ data, const T* __restrict__ x,
-                    T* __restrict__ y, int64_t n_rows, int64_t n_cols,
-                    int64_t ncol, DiaOffsets offs) {
-  const int64_t c = blockIdx.y;
-  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
-  for (int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n_rows; i += stride) {
-    T acc = T(0);
-    for (int k = 0; k < offs.count; ++k) {
-      const int64_t j = i + offs.off[k];
-      if (j >= 0 && j < n_cols) {
-        acc = acc + data[k * n_rows + i] * x[j * ncol + c];
-      }
-    }
-    y[i * ncol + c] = acc;
-  }
-}
-
-template <typename T>
-int launch(const T* data, const T* x, T* y, int64_t n_rows, int64_t n_cols,
-           int64_t ncol, const int64_t* offsets, int count, void* stream) {
-  if (count < 1 || count > kMaxDiags || n_rows < 1 || ncol < 1 ||
-      ncol > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  DiaOffsets offs;
-  offs.count = count;
-  for (int k = 0; k < count; ++k) offs.off[k] = offsets[k];
-  int64_t blocks = (n_rows + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(ncol));
-  dia_spmv_kernel<T><<<grid, kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      data, x, y, n_rows, n_cols, ncol, offs);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
+#include "dia_rows.cuh"
 
 extern "C" {
 
 int spectra_dia_spmv_f64(const double* data, const double* x, double* y,
                          int64_t n_rows, int64_t n_cols, int64_t ncol,
-                         const int64_t* offsets, int count, void* stream) {
-  return launch<double>(data, x, y, n_rows, n_cols, ncol, offsets, count,
-                        stream);
+                         const int64_t* offsets, int count, int threads,
+                         int staged, void* stream) {
+  spectra_dia::Args<double> A{data, x, y, n_rows, n_cols, ncol, 0, 0};
+  return spectra_dia::launch<double, true>(A, offsets, count, threads,
+                                           staged, stream);
 }
 
 int spectra_dia_spmv_f32(const float* data, const float* x, float* y,
                          int64_t n_rows, int64_t n_cols, int64_t ncol,
-                         const int64_t* offsets, int count, void* stream) {
-  return launch<float>(data, x, y, n_rows, n_cols, ncol, offsets, count,
-                       stream);
+                         const int64_t* offsets, int count, int threads,
+                         int staged, void* stream) {
+  spectra_dia::Args<float> A{data, x, y, n_rows, n_cols, ncol, 0, 0};
+  return spectra_dia::launch<float, true>(A, offsets, count, threads,
+                                          staged, stream);
 }
 
 }  // extern "C"

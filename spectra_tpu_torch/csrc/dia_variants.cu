@@ -23,8 +23,11 @@
 // row are far below the f32 rate.
 //
 // What the design does about it:
-//   noshift: one thread per row in a grid-stride loop; d coalesced
-//     loads of data and one of x.
+//   noshift: K1's own body and grid (dia_rows.cuh: for the same n and
+//     d the same block size, the same staging of loads through shared
+//     memory or registers, d unrolled as in K1), with the shifted reads
+//     of x replaced by one read of x[i] per row; so its gap to K1
+//     measures the shifted reads and nothing else.
 //   roll2d: a block owns rows x 128 outputs. It copies the window of
 //     (rows + 2 pad_rows) x 128 x values, pad_rows * 128 before its
 //     first output and after its last (zero outside [0, n)), into
@@ -49,33 +52,19 @@
 
 #include <cstdint>
 
+#include "dia_rows.cuh"
+
 namespace {
 
 constexpr int kMaxDiags = 64;
 constexpr int kThreads = 256;
 constexpr int kLanes = 128;
-constexpr int64_t kMaxBlocks = 1 << 20;
 constexpr int kMaxSharedBytes = 227 * 1024;
 
 struct DiaOffsets {
   int count;
   int64_t off[kMaxDiags];
 };
-
-__global__ void __launch_bounds__(kThreads)
-    noshift_kernel(const float* __restrict__ data, const float* __restrict__ x,
-                   float* __restrict__ y, int64_t n, int count) {
-  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
-  for (int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const float xi = x[i];
-    float acc = __fmul_rn(data[i], xi);
-    for (int k = 1; k < count; ++k) {
-      acc = __fadd_rn(acc, __fmul_rn(data[k * n + i], xi));
-    }
-    y[i] = acc;
-  }
-}
 
 __global__ void __launch_bounds__(kThreads)
     roll2d_kernel(const float* __restrict__ data, const float* __restrict__ x,
@@ -118,14 +107,18 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" {
 
+// P3 on K1's body (dia_rows.cuh) with the shifted reads removed; block
+// size and staging as K1 takes them (ops/dia_spmv.py::launch_config).
 int spectra_dia_noshift_f32(const float* data, const float* x, float* y,
-                            int64_t n, int count, void* stream) {
-  if (n < 1 || count < 1) return static_cast<int>(cudaErrorInvalidValue);
-  int64_t blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  noshift_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(data, x, y, n, count);
-  return static_cast<int>(cudaGetLastError());
+                            int64_t n, int count, int threads, int staged,
+                            void* stream) {
+  if (count < 1 || count > kMaxDiags) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t zeros[kMaxDiags] = {};
+  spectra_dia::Args<float> A{data, x, y, n, n, 1, 0, 0};
+  return spectra_dia::launch<float, false>(A, zeros, count, threads, staged,
+                                           stream);
 }
 
 // x must be 16-byte aligned. pad_rows * 128 must exceed every |offset|

@@ -4,7 +4,8 @@ Each ``spectra_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` into
 its own shared library with a plain C interface and loaded with
 ``ctypes`` (no PyTorch headers, so a build takes seconds). Libraries
 go to ``build/spectra_tpu_torch/`` at the root of the checkout, named
-by a hash of the source and the flags, so an edited source is rebuilt
+by a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header is rebuilt
 and an unchanged one is reused. :func:`build_all` starts one ``nvcc``
 per source, all at once.
 
@@ -44,8 +45,9 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # shared device code
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

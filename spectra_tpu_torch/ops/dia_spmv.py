@@ -5,23 +5,32 @@ Port of :func:`spectra_tpu.ops.dia_pallas.dia_spmv_pallas`. For
 
     y[i] = sum_k data[k, i] * x[i + offsets[k]],   0 <= i < n_rows,
 
-where terms whose column falls outside ``[0, n_cols)`` count as zero,
-summed in offset order from ``k = 0``. ``x`` may be one vector
-``(n_cols,)`` or a block ``(n_cols, ncol)`` (the ``matmat`` of the
-Rayleigh quotients).
+where x counts as zero outside ``[0, n_cols)``, summed in offset order
+from ``+0``. ``x`` may be one vector ``(n_cols,)`` or a block
+``(n_cols, ncol)`` (the ``matmat`` of the Rayleigh quotients).
 
 :func:`dia_spmv` launches the CUDA kernel ``csrc/dia_spmv.cu`` for
 tensors on the card and runs :func:`dia_spmv_plain` for tensors on the
-CPU; it never sends a CUDA tensor to the plain version. The kernel is
-built with ``-fmad=false``, so both compute every term as a rounded
-multiply followed by a rounded add in the same order, and agree
-bitwise.
+CPU; it never sends a CUDA tensor to the plain version. Both compute
+every term as a rounded multiply followed by a rounded add in the same
+order, the out-of-range terms as ``data * 0``, and agree bitwise.
+
+The kernel's launch comes from :func:`launch_config`: block size,
+whether a thread stages its loads through shared memory (cp.async) or
+loads into registers, and blocks, chosen from ``n_rows`` and the card's
+SM count, once per shape (:func:`card_launch`): small matrices
+(the north star's coarse multigrid levels) stage, so that all of a
+row's loads are in flight at once, and spread over every SM; large ones
+load into registers, the other rows' warps hiding the latency. Thread
+``t`` of block ``b`` takes row ``(b + s * blocks) * threads + t`` on
+trip ``s`` of the kernel's grid-stride loop.
 
 ``LAUNCHES`` counts kernel launches (CUDA only), so a run can show
 that its SpMVs went through the kernel.
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -35,6 +44,17 @@ MAX_DIAGS = 64
 
 #: Kernel launches since import (or since a caller reset it to 0).
 LAUNCHES = 0
+
+#: Block sizes the kernel takes, and the most blocks it launches (a
+#: grid-stride loop covers the rest).
+BLOCK_SIZES = (32, 64, 128, 256)
+MAX_BLOCKS = 1 << 20
+
+#: Rows below which a vector's loads are staged through shared memory:
+#: on an H100 staging halved K1's time at 29,791 rows (31^3) and took 2%
+#: more at 226,981 (61^3), where the other rows' warps already hide the
+#: latency (PERF.md).
+STAGED_ROWS_MAX = 1 << 17
 
 _SYMBOLS = {
     torch.float64: "spectra_dia_spmv_f64",
@@ -65,6 +85,24 @@ def dia_spmv_plain(data, offsets, x, n_cols: int):
     return y
 
 
+def launch_config(n_rows: int, ncol: int, sms: int):
+    """``(threads, staged, blocks)`` of K1's launch for ``n_rows`` rows
+    and ``ncol`` columns on a card of ``sms`` SMs.
+
+    One vector of fewer than ``STAGED_ROWS_MAX`` rows stages its loads
+    (the north star's levels 3 and 4, 31^3 and 16^3); larger ones, and
+    a block of columns, load into registers. The block is the largest that
+    still gives every SM two blocks (at least 32 threads), so that the
+    4,096 rows of a 16^3 level run on 128 SMs rather than 16. The
+    diagonal count does not enter: the kernel unrolls the counts it
+    knows."""
+    staged = ncol == 1 and n_rows < STAGED_ROWS_MAX
+    threads = next(
+        (t for t in BLOCK_SIZES[::-1] if -(-n_rows // t) >= 2 * sms), BLOCK_SIZES[0]
+    )
+    return threads, staged, min(-(-n_rows // threads), MAX_BLOCKS)
+
+
 def _check(data, offsets, x, n_cols: int) -> None:
     if data.ndim != 2 or data.shape[0] != len(offsets):
         raise ValueError("data must have shape (len(offsets), n_rows)")
@@ -92,11 +130,20 @@ def _kernel(dtype):
         fn.argtypes = [
             ptr, ptr, ptr,
             ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-            ptr, ctypes.c_int, ptr,
+            ptr, ctypes.c_int, ctypes.c_int, ctypes.c_int, ptr,
         ]
         fn.restype = ctypes.c_int
         _KERNELS[dtype] = fn
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def card_launch(n_rows: int, ncol: int, index: int):
+    """``(threads, staged)`` of :func:`launch_config` on CUDA device
+    ``index``, computed once per shape: a hot call adds one cache
+    lookup."""
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return launch_config(n_rows, ncol, sms)[:2]
 
 
 def dia_spmv(data, offsets, x, n_cols: int):
@@ -112,6 +159,7 @@ def dia_spmv(data, offsets, x, n_cols: int):
         raise ValueError(f"no DIA SpMV for device {x.device}")
     n_rows = data.shape[1]
     ncol = 1 if x.ndim == 1 else x.shape[1]
+    threads, staged = card_launch(n_rows, ncol, x.device.index)
     y = torch.empty((n_rows, *x.shape[1:]), dtype=x.dtype, device=x.device)
     offs = (ctypes.c_int64 * len(offsets))(*offsets)
     fn = _kernel(data.dtype)
@@ -119,7 +167,8 @@ def dia_spmv(data, offsets, x, n_cols: int):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(
             data.data_ptr(), x.data_ptr(), y.data_ptr(),
-            n_rows, n_cols, ncol, offs, len(offsets), stream,
+            n_rows, n_cols, ncol, offs, len(offsets), threads, int(staged),
+            stream,
         )
     if err != 0:
         raise RuntimeError(f"dia_spmv kernel launch failed: CUDA error {err}")

@@ -6,8 +6,11 @@ Port of the TPU probes ``scripts/tpu_dia_variants.py`` (``dia_noshift``,
 them beside K1 and K2 to take apart what K1's time is made of.
 
 * :func:`dia_noshift`: ``y[i] = sum_k data[k, i] * x[i]``, K1 with
-  every slice aligned at the row, wrong on purpose; what it saves
-  against K1 is the cost of the shifted x reads.
+  every slice aligned at the row, wrong on purpose; it runs K1's own
+  kernel body and launch configuration (``csrc/dia_rows.cuh``,
+  :func:`spectra_tpu_torch.ops.dia_spmv.card_launch`) with the shifted
+  reads removed, so what it saves against K1 is the cost of the shifted
+  x reads.
 * :func:`dia_roll2d`: the correct ``y = A x`` with each block's x
   window staged once in shared memory (the TPU probe's ``(rows, 128)``
   VMEM window); its plain version transcribes the TPU body on the
@@ -147,10 +150,12 @@ def dia_noshift(data, offsets, x):
     _check(data, offsets, x)
     if x.device.type == "cpu":
         return dia_noshift_plain(data, x)
-    p = ctypes.c_void_p
+    threads, staged = _k1.card_launch(x.shape[0], 1, x.device.index)
+    p, i = ctypes.c_void_p, ctypes.c_int
     return _launch(
-        "dia_noshift", [p, p, p, ctypes.c_int64, ctypes.c_int, p], x,
-        data.data_ptr(), x.data_ptr(), x.shape[0], len(offsets),
+        "dia_noshift", [p, p, p, ctypes.c_int64, i, i, i, p], x,
+        data.data_ptr(), x.data_ptr(), x.shape[0], len(offsets), threads,
+        int(staged),
     )
 
 

@@ -12,6 +12,8 @@ operator's device, the small projected problem on the host in f64.
 ``eigenvectors()`` returns a tensor on the operator's device.
 """
 
+import sys
+
 import numpy as np
 import torch
 
@@ -311,6 +313,9 @@ class HermEigsBase:
 
         Between rounds the round's (ncv, n) basis is dropped before the
         next round builds its own; only the (q, n) locked blocks stay.
+        A deflated round (``round > 0``) that raises ends the loop with
+        one line on stderr: the pairs of the earlier rounds are returned
+        and :meth:`certified` is False. Round 0 re-raises.
         """
         want = sorting if want is None else want
         if want == SortRule.BothEnds:
@@ -332,14 +337,28 @@ class HermEigsBase:
         self._locking_rounds = []
         try:
             for rnd in range(max_rounds):
-                if rnd > 0:
-                    if ncv_locked is not None:
-                        self._ncv = int(ncv_locked)
-                    self._arnop = LockedArnoldiOp(base_arnop, tuple(blocks))
-                    self.init(SimpleRandom(77000 + rnd).random_vec(
-                        self._n, numpy_dtype(self._dtype)
-                    ))
-                self.compute(selection, maxit, tol, sorting)
+                try:
+                    if rnd > 0:
+                        if ncv_locked is not None:
+                            self._ncv = int(ncv_locked)
+                        self._arnop = LockedArnoldiOp(base_arnop, tuple(blocks))
+                        self.init(SimpleRandom(77000 + rnd).random_vec(
+                            self._n, numpy_dtype(self._dtype)
+                        ))
+                    self.compute(selection, maxit, tol, sorting)
+                except Exception as err:
+                    if rnd == 0:
+                        raise
+                    # A deflated round failed: keep the pairs of the
+                    # earlier rounds, uncertified, as the reference does.
+                    print(
+                        f"[compute_locked] round {rnd} failed "
+                        f"(uncertified): {err!r:.300}",
+                        file=sys.stderr,
+                    )
+                    self._carry = None
+                    self._resume_carry = None
+                    break
                 niter += self._niter
                 nops += self._nops
                 new_vals = self.eigenvalues().astype(np.float64)

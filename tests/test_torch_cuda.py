@@ -173,6 +173,90 @@ def test_ds_entries_match_plain_on_card(cuda, label, n, offsets):
         padded.data_hi, padded.data_lo, x, offsets=offsets, n=n))
 
 
+def _stencil9_offsets(g):
+    """The 9 offsets of a 2-D 9-point stencil on a g^2 grid (the 2-D
+    Galerkin multigrid levels of config #3)."""
+    return tuple(sorted(a * g + b for a in (-1, 0, 1) for b in (-1, 0, 1)))
+
+
+# (label, n_rows, n_cols, offsets) for K1 and P3: each unrolled d (5, 7,
+# 9, 27) and the generic path (1, 3, 64); n odd and even, n = 1; the
+# shapes of config #3's coarse levels (d = 9 at 500^2 to 63^2) and the
+# north star's (d = 27 at 31^3 and 16^3); non-square. On a 132-SM card
+# the vectors reach every launch that ``launch_config`` picks: staged
+# with 32 threads (n <= 16,832), 64 (31^3), 128 (250^2) and 256
+# (2^17 - 1), in registers with 256 (2^17 + 1, 500^2); the matmats
+# reach the register path at every block size.
+K1_CASES = [
+    ("n1_d1", 1, 1, (0,)),
+    ("n2_d5", 2, 2, (-2, -1, 0, 1, 2)),
+    ("n4097_d5", 4097, 4097, (-64, -1, 0, 1, 64)),
+    ("g17_d7", 17**3, 17**3, (-289, -17, -1, 0, 1, 17, 289)),
+    ("g50_d9", 2500, 2500, _stencil9_offsets(50)),
+    ("g63_d9", 63**2, 63**2, _stencil9_offsets(63)),
+    ("g125_d9", 125**2, 125**2, _stencil9_offsets(125)),
+    ("g250_d9", 250**2, 250**2, _stencil9_offsets(250)),
+    ("g500_d9", 500**2, 500**2, _stencil9_offsets(500)),
+    ("g16_d27", 16**3, 16**3, _stencil_offsets(16)),
+    ("g15_d27", 15**3, 15**3, _stencil_offsets(15)),
+    ("g31_d27", 31**3, 31**3, _stencil_offsets(31)),
+    ("n1001_d3", 1001, 1001, (-1, 0, 1)),
+    ("n5003_d64", 5003, 5003, tuple(range(-320, 320, 10))),
+    ("staged_top_d5", dmod.STAGED_ROWS_MAX - 1, dmod.STAGED_ROWS_MAX - 1,
+     (-1000, -1, 0, 1, 1000)),
+    ("registers_d7", dmod.STAGED_ROWS_MAX + 1, dmod.STAGED_ROWS_MAX + 1,
+     (-16384, -128, -1, 0, 1, 128, 16384)),
+    ("rect_40x55", 40, 55, (-7, -1, 0, 2, 9)),
+    ("rect_55x40", 55, 40, (-7, -1, 0, 2, 9)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize(
+    "label, n_rows, n_cols, offsets", K1_CASES, ids=[c[0] for c in K1_CASES]
+)
+def test_k1_and_p3_bitwise_on_card(cuda, dtype, label, n_rows, n_cols, offsets):
+    """K1 bitwise against its plain version with random data in every
+    position (the out-of-range ones included), at the launch the wrapper
+    picks, and its matmat; P3 on K1's body bitwise against its plain
+    version (square f32 cases)."""
+    rng = np.random.default_rng(n_rows * len(offsets))
+    data = torch.from_numpy(rng.standard_normal((len(offsets), n_rows))).to(
+        dtype=dtype, device="cuda"
+    )
+    x = torch.randn(n_cols, dtype=dtype, device="cuda")
+    before = dmod.LAUNCHES
+    y = dmod.dia_spmv(data, offsets, x, n_cols)
+    torch.cuda.synchronize()
+    assert dmod.LAUNCHES == before + 1
+    assert torch.equal(y, dmod.dia_spmv_plain(data, offsets, x, n_cols))
+    X = torch.randn((n_cols, 3), dtype=dtype, device="cuda")
+    assert torch.equal(
+        dmod.dia_spmv(data, offsets, X, n_cols),
+        dmod.dia_spmv_plain(data, offsets, X, n_cols),
+    )
+    if dtype == torch.float32 and n_rows == n_cols:
+        before = dv.LAUNCHES["dia_noshift"]
+        y = dv.dia_noshift(data, offsets, x)
+        torch.cuda.synchronize()
+        assert dv.LAUNCHES["dia_noshift"] == before + 1
+        assert torch.equal(y, dv.dia_noshift_plain(data, x))
+
+
+@pytest.mark.cuda
+def test_k1_cases_reach_every_launch(cuda):
+    """The cases above reach every launch the wrapper picks for a vector
+    (each block size staged, 256 threads in registers) and every block
+    size of the matmat's register path, on the 132-SM card they are
+    sized for."""
+    if torch.cuda.get_device_properties(0).multi_processor_count != 132:
+        pytest.skip("the cases are sized for a 132-SM card (H100 SXM)")
+    want = {(t, True) for t in dmod.BLOCK_SIZES} | {(256, False)}
+    assert want <= {dmod.card_launch(n, 1, 0) for _, n, _, _ in K1_CASES}
+    assert set(dmod.BLOCK_SIZES) <= {dmod.card_launch(n, 3, 0)[0] for _, n, _, _ in K1_CASES}
+
+
 @pytest.mark.cuda
 def test_stream_probe_matches_plain_on_card(cuda):
     for n in (1, 7, 4096, (1 << 20) + 3, (1 << 22) + 4 * 1024 + 2):

@@ -50,28 +50,99 @@ def _pair(A, dtype=None):
     return jd, pd
 
 
-@pytest.mark.parametrize(
-    "case, dtype",
-    [("lap24", np.float32), ("lap24", np.float64), ("n777", np.float64)],
-)
+def _stencil27_offsets(g):
+    """The 27 offsets of a 3-D 27-point stencil on a g^3 grid."""
+    return tuple(sorted(a * g * g + b * g + c for a in (-1, 0, 1)
+                        for b in (-1, 0, 1) for c in (-1, 0, 1)))
+
+
+# Random data in every position, the out-of-range ones included: (n_rows,
+# n_cols, offsets). d=64 keeps its offsets within the Pallas kernel's
+# chunk of 1024.
+RANDOM_K1_CASES = {
+    "stencil27_g7": (7**3, 7**3, _stencil27_offsets(7)),
+    "d1": (500, 500, (3,)),
+    "d64": (2000, 2000, tuple(range(-480, 480, 15))),
+    "rect_40x55": (40, 55, (-7, -1, 0, 2, 9)),
+    "rect_55x40": (55, 40, (-7, -1, 0, 2, 9)),
+}
+
+
+def _k1_case(case, dtype):
+    """(JAX DiaMatrix, port DiaMatrix, x) of one case."""
+    rng = np.random.default_rng(0)
+    if case in RANDOM_K1_CASES:
+        n_rows, n_cols, offsets = RANDOM_K1_CASES[case]
+        data = rng.normal(size=(len(offsets), n_rows)).astype(dtype)
+        jd = jf.DiaMatrix(data=jnp.asarray(data), offsets=offsets,
+                          n_rows=n_rows, n_cols=n_cols)
+        pd = dia_from_numpy(data, offsets, n_rows, n_cols, device="cpu")
+    else:
+        jd, pd = _pair(_laplacian_2d(24) if case == "lap24" else _unaligned(), dtype)
+    return jd, pd, rng.normal(size=pd.n_cols).astype(dtype)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("case", ["lap24", "n777", *RANDOM_K1_CASES])
 def test_dia_spmv_matches_pallas_and_jax(case, dtype):
-    A = _laplacian_2d(24) if case == "lap24" else _unaligned()
-    jd, pd = _pair(A, dtype)
-    x = np.random.default_rng(0).normal(size=A.shape[1]).astype(dtype)
+    """The port's K1 (its plain version on the CPU) against the Pallas
+    kernel in interpret mode and ``DiaMatrix.matvec``. Both JAX functions
+    zero-pad x; for more rows than columns x gets zero rows up to n_rows
+    first (the Pallas kernel reads x over the rows' range, and the JAX
+    matvec's dynamic_slice would clamp), which adds only zero terms."""
+    jd, pd, x = _k1_case(case, dtype)
+    xj = jnp.asarray(np.pad(x, (0, max(0, pd.n_rows - pd.n_cols))))
     want_pallas = np.asarray(
-        dia_spmv_pallas(jd.data, jd.offsets, jnp.asarray(x), chunk=1024,
-                        interpret=True)
+        dia_spmv_pallas(jd.data, jd.offsets, xj, chunk=1024, interpret=True)
     )
-    want_jax = np.asarray(jd.matvec(jnp.asarray(x)))
+    want_jax = np.asarray(jd.matvec(xj))
     xt = torch.from_numpy(x)
     plain = dmod.dia_spmv_plain(pd.data, pd.offsets, xt, pd.n_cols).numpy()
     got = pd.matvec(xt).numpy()
     atol = 1e-5 if dtype == np.float32 else 1e-12
     for y in (plain, got):
-        assert y.dtype == dtype
+        assert y.dtype == dtype and y.shape == (pd.n_rows,)
         np.testing.assert_allclose(y, want_pallas, atol=atol)
         np.testing.assert_allclose(y, want_jax, atol=atol)
     np.testing.assert_array_equal(got, plain)
+
+
+def _kernel_rows(n_rows, threads, blocks):
+    """The rows K1's grid-stride loop computes (``csrc/dia_rows.cuh``):
+    thread t of block b takes row (b + s * blocks) * threads + t on trip
+    s, while that row is below n_rows."""
+    per_trip = np.arange(blocks * threads)
+    return np.concatenate([
+        start + per_trip[start + per_trip < n_rows]
+        for start in range(0, n_rows, blocks * threads)
+    ])
+
+
+#: SMs of an H100 SXM, the card the launch choice was measured on.
+SMS = 132
+
+
+@pytest.mark.parametrize(
+    "n", [1, 2, 31, 32, 33, 4096, 4097, 29791, 226981,
+          dmod.STAGED_ROWS_MAX - 1, dmod.STAGED_ROWS_MAX, dmod.STAGED_ROWS_MAX + 257,
+          16832, 16833, 33664, 33665, 67328, 67329],
+)
+def test_launch_config_covers_every_row_once(n):
+    """K1's launch (``launch_config``) and the kernel's row map cover
+    rows 0 .. n-1 exactly once, from n = 1 to past the staging
+    threshold, and with the block count capped (grid-stride trips); the
+    block is the largest that gives every SM two blocks (32 threads
+    where none does), so n on each side of 2 * 132 * t reaches each
+    block size t."""
+    threads, staged, blocks = dmod.launch_config(n, 1, SMS)
+    assert threads in dmod.BLOCK_SIZES and staged == (n < dmod.STAGED_ROWS_MAX)
+    assert blocks == min(-(-n // threads), dmod.MAX_BLOCKS)
+    fills = [t for t in dmod.BLOCK_SIZES if -(-n // t) >= 2 * SMS]
+    assert threads == max(fills, default=dmod.BLOCK_SIZES[0])
+    for b in (blocks, max(1, blocks // 7)):
+        got = np.sort(_kernel_rows(n, threads, b))
+        np.testing.assert_array_equal(got, np.arange(n))
+    assert dmod.launch_config(n, 4, SMS)[:2] == (threads, False)
 
 
 @pytest.mark.parametrize("shape", [(777, 777), (40, 55), (55, 40)])

@@ -231,3 +231,60 @@ def test_north_star_shape_locked_matches_jax():
         np.testing.assert_allclose(vals, lam, rtol=0, atol=1e-9)
         out.append(vals)
     np.testing.assert_allclose(out[0], out[1], rtol=0, atol=1e-10)
+
+
+
+def _failing_on_call(solver, method, call):
+    """Patch ``method`` on the instance to raise on its ``call``-th call
+    (1-based) and run the original otherwise."""
+    original, calls = getattr(solver, method), [0]
+
+    def patched(*args, **kwargs):
+        calls[0] += 1
+        if calls[0] == call:
+            raise RuntimeError("injected failure of a locking round")
+        return original(*args, **kwargs)
+
+    setattr(solver, method, patched)
+
+
+# (port's failing method and call, JAX package's): round 1 fails in its
+# init (the upload of its start vector, the case the reference's guard
+# names) or in its compute; round 0 fails in compute. The JAX package
+# runs the init failure for the compute case: its own compute failure
+# ends in an AttributeError, since init cleared the result it packages
+# (ROADMAP.md section 3).
+FAILURES = {
+    "round1_init": (("init", 1), ("init", 1)),
+    "round1_compute": (("compute", 2), ("init", 1)),
+    "round0": (("compute", 1), ("compute", 1)),
+}
+
+
+@pytest.mark.parametrize("case", list(FAILURES))
+def test_failed_round_keeps_earlier_pairs_as_jax(case, capfd):
+    """A deflated round that raises ends ``compute_locked`` with the
+    pairs of the earlier rounds and ``certified()`` False, with one line
+    on stderr, in both packages (``spectra_tpu/solvers/base.py:
+    650-666``); a failure of round 0 raises in both."""
+    A = _triple_top()
+    out = []
+    for mod, dev, (method, call) in zip(
+        (stt, st), (dict(device="cpu"), {}), FAILURES[case]
+    ):
+        s = mod.SymEigsSolver(mod.SparseSymMatProd.from_full(A, **dev), nev=4, ncv=16)
+        s.init()
+        _failing_on_call(s, method, call)
+        if case == "round0":
+            with pytest.raises(RuntimeError, match="injected"):
+                s.compute_locked(mod.SortRule.LargestAlge)
+            continue
+        capfd.readouterr()
+        nconv = s.compute_locked(mod.SortRule.LargestAlge)
+        assert capfd.readouterr().err.count("[compute_locked] round 1 failed") == 1
+        assert not s.certified()
+        out.append((nconv, np.asarray(s.eigenvalues())))
+    if out:
+        (pn, pv), (jn, jv) = out
+        assert pn == jn == len(pv) == len(jv) > 0
+        np.testing.assert_allclose(np.sort(pv), np.sort(jv), atol=1e-10, rtol=0)
