@@ -32,8 +32,9 @@ Phases, each printing JSON lines and its wall time:
    level 1; each beside its bound, plain version and the
    ``torch.sparse`` CSR f64 product;
 7. the probes P3 ``dia_noshift`` and P4 ``dia_roll2d`` (rows 32 to 256)
-   at d=5, n=10^6 in f32, against their plain versions and beside K1
-   f32 at the same shape;
+   at d=5, n=10^6 in f32, and P4 also at the 61^3 27-point planes in f32
+   (n = 226,981), against their plain versions (P4 also at odd n, wide
+   offsets, n=1 and rows=1) and beside K1 f32 at the same shapes;
 8. the probe P5 ``dia_spmv_f32`` (K1's f32 kernel) on the g=243 planes,
    beside K2 mode B;
 9. ``SymEigsSolver`` on the g=100 2-D Laplacian (n = 10^4) with implicit
@@ -63,10 +64,11 @@ the port is imported, never jax or the JAX package.
 
     python3 chip_smoke.py --k1-parent CHECKOUT
 
-runs only the environment phase and K1 and P3 of the checkout at
+runs only the environment phase and K1, P3 and P4 of the checkout at
 ``CHECKOUT``, through its own wrappers, against this tree's, in turns
-(parent, change, change, parent), at every K1 shape of the paths, P5's
-and P3's and the launch floor.
+(parent, change, change, parent), at every K1 shape of the paths, P5's,
+P3's and P4's (rows 32 and 256) and the launch floor, then P4's two
+routes for the data planes against each other.
 """
 
 import json
@@ -130,6 +132,8 @@ SOURCES = {
     "dia_spmv_f32": "dia_spmv.cu",
 }
 ROLL2D_ROWS = (32, 64, 128, 256)
+#: P4's rows in the comparison with a parent checkout.
+P4_PARENT_ROWS = (32, 256)
 #: Where the g=100 checkpoint round trip writes its file (gitignored).
 CHECKPOINT_DIR = "build/chip_smoke"
 
@@ -997,71 +1001,114 @@ def phase_k1_levels(torch, dmod, pf, rates):
     return rows, floor
 
 
+def roll2d_cases(torch, pf):
+    """P4's cases beyond its two timed shapes, each ``(label, data,
+    offsets, rows)`` with random f32 data: n odd (9001), the 27-point
+    planes at a small g with n odd (7^3), offsets larger than one CTA's
+    slice, n = 1 and rows = 1 (``tests/test_torch_cuda.py`` holds the
+    same)."""
+    band = (-700, -129, -128, -1, 0, 3, 128, 300)
+    wide = (-20000, -1, 0, 1, 20000)
+    out = []
+    for label, n, offs, rows in (
+        ("odd_n9001", 9001, band, 32), ("stencil27_g7", 7**3, stencil27(7), 8),
+        ("wide_offsets_n50001", 50001, wide, 8), ("n1", 1, (0,), 32),
+        ("rows1_n50001", 50001, wide, 1),
+    ):
+        out.append((label, torch.randn((len(offs), n), dtype=torch.float32,
+                                       device="cuda"), offs, rows))
+    return out
+
+
 def phase_dia_variants(torch, vmod, dmod, pf, rates):
     """P3 ``dia_noshift`` and P4 ``dia_roll2d`` at the probe's shape, the
-    g=1000 2-D Laplacian in f32 (d=5, n=10^6), bitwise against their
-    plain versions, then timed as K1 is (L2 flushed, CUDA events, median
-    of 40) beside their bound, their plain version, K1 f32 at the same
-    shape and one ``torch.sparse`` CSR f32 product (P4's library time;
-    no single PyTorch call computes P3's wrong-on-purpose function). The
-    launch counters are set to 0 after the comparisons and read after
-    the timing."""
+    g=1000 2-D Laplacian in f32 (d=5, n=10^6), and P4 with K1 f32 beside
+    it at the north star's 61^3 level in f32 (27-point, n = 226,981,
+    random data): bitwise against their plain versions (P4 also against
+    K1's plain version, and at the odd-n, wide-offset, n=1 and rows=1
+    cases of ``roll2d_cases``), then timed as K1 is (L2 flushed, CUDA
+    events, median of 40) beside their bound, their plain version, K1
+    f32 at the same shape and one ``torch.sparse`` CSR f32 product (P4's
+    library time; no single PyTorch call computes P3's wrong-on-purpose
+    function). P4 runs at every ``rows`` of ``ROLL2D_ROWS`` at both
+    shapes. The launch counters are set to 0 after the comparisons and
+    read after the timing."""
     bandwidth, _, f32_rate = rates
     timer = Timer(torch)
     A = laplacian_2d(G_FULL)
     m = pf.dia_from_scipy(A, dtype=torch.float32)
-    data, offs, n = m.data, m.offsets, m.n_rows
+    g61 = K1_LEVELS[0][1]
+    shapes = {
+        "g1000": (m.data, m.offsets, torch_csr(torch, A, np.float32)),
+        f"g{g61}": random_dia(torch, pf, g61**3, g61**3, stencil27(g61), torch.float32),
+    }
+    m61 = shapes[f"g{g61}"]
+    shapes[f"g{g61}"] = (m61.data, m61.offsets, dia_csr(torch, pf, m61))
+    cases = [(f"{shape}_r{rows}", data, offs, rows)
+             for shape, (data, offs, _) in shapes.items() for rows in ROLL2D_ROWS]
+    cases += roll2d_cases(torch, pf)
+    data, offs, _ = shapes["g1000"]
+    n, d = data.shape[1], len(offs)
     x = torch.randn(n, dtype=torch.float32, device="cuda")
-    csr = torch_csr(torch, A, np.float32)
-    d = len(offs)
-    checks = {"dia_noshift": (vmod.dia_noshift(data, offs, x),
-                              vmod.dia_noshift_plain(data, x))}
-    k1_plain = dmod.dia_spmv_plain(data, offs, x, n)
-    for rows in ROLL2D_ROWS:
-        y = vmod.dia_roll2d(data, offs, x, rows=rows)
-        checks[f"dia_roll2d_r{rows}"] = (y, vmod.dia_roll2d_plain(data, offs, x, rows))
-        if not torch.equal(y, k1_plain):
-            raise RuntimeError(f"dia_roll2d rows={rows} is not K1's product")
     errs = {}
-    for label, (y, ref) in checks.items():
-        errs[label] = float((y - ref).abs().max())
+
+    def check(label, kernel, y, ref, **extra):
+        errs[label] = float((y - ref).abs().max()) if y.numel() else 0.0
         bitwise = bool(torch.equal(y, ref))
-        kernel = "dia_roll2d" if label.startswith("dia_roll2d") else label
         emit(phase="kernel_vs_plain", kernel=kernel, case=label,
-             d=d, n=n, max_abs_err=errs[label], bitwise_equal=bitwise, ok=bitwise)
+             max_abs_err=errs[label], bitwise_equal=bitwise, ok=bitwise, **extra)
         if not bitwise:
-            raise RuntimeError(f"{label} disagrees with its plain version")
-    del checks, k1_plain
-    terms = sum(n - abs(o) for o in offs)
-    bytes_moved = (d + 2) * 4 * n
+            raise RuntimeError(f"{kernel} disagrees with its plain version on {label}")
+
+    check("dia_noshift", "dia_noshift", vmod.dia_noshift(data, offs, x),
+          vmod.dia_noshift_plain(data, x), d=d, n=n)
+    for label, cdata, coffs, rows in cases:
+        cn = cdata.shape[1]
+        cx = x if cn == n else torch.randn(cn, dtype=torch.float32, device="cuda")
+        y = vmod.dia_roll2d(cdata, coffs, cx, rows=rows)
+        plan = vmod.card_plan(cn, coffs, rows, 0)
+        check(f"dia_roll2d_{label}", "dia_roll2d", y,
+              vmod.dia_roll2d_plain(cdata, coffs, cx, rows), d=len(coffs), n=cn,
+              rows=rows, plan=plan._asdict())
+        if not torch.equal(y, dmod.dia_spmv_plain(cdata, coffs, cx, cn)):
+            raise RuntimeError(f"dia_roll2d {label} is not K1's product")
     torch.cuda.synchronize()
     vmod.LAUNCHES.update(dia_noshift=0, dia_roll2d=0)
-    out = {"k1_f32": timed_entry(
-        timer, lambda: dmod.dia_spmv(data, offs, x, n),
-        lambda: dmod.dia_spmv_plain(data, offs, x, n), lambda: csr @ x,
-        bytes_moved, 2 * terms, f32_rate, bandwidth,
-    )}
-    out["dia_noshift"] = timed_entry(
-        timer, lambda: vmod.dia_noshift(data, offs, x),
-        lambda: vmod.dia_noshift_plain(data, x), None,
-        bytes_moved, 2 * d * n, f32_rate, bandwidth,
-    )
-    for rows in ROLL2D_ROWS:
-        out[f"dia_roll2d_r{rows}"] = timed_entry(
-            timer, lambda rows=rows: vmod.dia_roll2d(data, offs, x, rows=rows),
-            lambda rows=rows: vmod.dia_roll2d_plain(data, offs, x, rows),
-            lambda: csr @ x, bytes_moved, 2 * terms, f32_rate, bandwidth,
+    out = {}
+    for shape, (sdata, soffs, csr) in shapes.items():
+        sn, sd = sdata.shape[1], len(soffs)
+        sx = x if sn == n else torch.randn(sn, dtype=torch.float32, device="cuda")
+        terms = sum(sn - abs(o) for o in soffs)
+        bytes_moved = (sd + 2) * 4 * sn
+        out[f"k1_f32_{shape}"] = timed_entry(
+            timer, lambda: dmod.dia_spmv(sdata, soffs, sx, sn),
+            lambda: dmod.dia_spmv_plain(sdata, soffs, sx, sn), lambda: csr @ sx,
+            bytes_moved, 2 * terms, f32_rate, bandwidth,
         )
-        out[f"dia_roll2d_r{rows}"].update(
-            rows=rows, shared_bytes=vmod.window_bytes(offs, rows)
-        )
+        if shape == "g1000":
+            out["dia_noshift"] = timed_entry(
+                timer, lambda: vmod.dia_noshift(data, offs, x),
+                lambda: vmod.dia_noshift_plain(data, x), None,
+                bytes_moved, 2 * d * n, f32_rate, bandwidth,
+            )
+        for rows in ROLL2D_ROWS:
+            t = out[f"dia_roll2d_{shape}_r{rows}"] = timed_entry(
+                timer, lambda rows=rows: vmod.dia_roll2d(sdata, soffs, sx, rows=rows),
+                lambda rows=rows: vmod.dia_roll2d_plain(sdata, soffs, sx, rows),
+                lambda: csr @ sx, bytes_moved, 2 * terms, f32_rate, bandwidth,
+            )
+            plan = vmod.card_plan(sn, soffs, rows, 0)
+            t.update(rows=rows, d=sd, n=sn, plan=plan._asdict(), ctas=plan.ctas,
+                     window_bytes=vmod.window_bytes(soffs, rows),
+                     shared_bytes=plan.shared_bytes,
+                     k1_f32_ms=out[f"k1_f32_{shape}"]["ms"])
     torch.cuda.synchronize()
     launches = dict(vmod.LAUNCHES)
     for label, t in out.items():
-        emit(phase="dia_variants_timing", kernel=label, d=d, n=n,
-             k1_f32_ms=out["k1_f32"]["ms"], **t)
-    best = min(ROLL2D_ROWS, key=lambda r: out[f"dia_roll2d_r{r}"]["ms"])
-    return out, errs, launches, best
+        emit(phase="dia_variants_timing", kernel=label, **t)
+    del shapes, cases, m, m61
+    torch.cuda.empty_cache()
+    return out, errs, launches
 
 
 def phase_f32_ceiling(torch, vmod, dmod, pf, A243, rates, ds_t):
@@ -1429,11 +1476,12 @@ def parent_ops(torch, parent):
 
 
 def compare_parent(torch, dmod, vmod, pf, rates, parent):
-    """The parent's K1 and P3 and this tree's, each through its own
+    """The parent's K1, P3 and P4 and this tree's, each through its own
     wrapper, interleaved in one run (parent, change, change, parent) at
     every K1 shape of the paths: the north star's levels 2-4 (27-point,
     random data), config #2's (the 2-D g=1000 Laplacian, f64 and f32,
-    and P3 on it in f32), the g=243 operator (7-point, random data, f64
+    and P3 and P4, at rows of ``P4_PARENT_ROWS``, on it in f32), the
+    g=243 operator (7-point, random data, f64
     as mode A and f32 as P5) and the launch floor (n=1, d=1). Each turn:
     cold median, min, max (L2 flushed, 40 calls), back to back (200
     calls in one CUDA graph) and the host's enqueue time per call
@@ -1450,6 +1498,8 @@ def compare_parent(torch, dmod, vmod, pf, rates, parent):
     shapes += [("config2_f64", G_FULL**2, None, torch.float64, "dia_spmv"),
                ("config2_f32", G_FULL**2, None, torch.float32, "dia_spmv"),
                ("p3_config2_f32", G_FULL**2, None, torch.float32, "dia_noshift"),
+               *((f"p4_config2_f32_r{r}", G_FULL**2, None, torch.float32, f"dia_roll2d_r{r}")
+                 for r in P4_PARENT_ROWS),
                ("g243_operator", G_NORTH**3, offs243, torch.float64, "dia_spmv"),
                ("p5_g243_f32", G_NORTH**3, offs243, torch.float32, "dia_spmv"),
                ("launch_floor", 1, (0,), torch.float64, "dia_spmv")]
@@ -1461,9 +1511,16 @@ def compare_parent(torch, dmod, vmod, pf, rates, parent):
             m = random_dia(torch, pf, n, n, offs, dtype)
         x = torch.randn(n, dtype=dtype, device="cuda")
         offs, d = m.offsets, len(m.offsets)
+        config = dmod.card_launch(n, 1, 0)
         if kernel == "dia_noshift":
             calls = dict(parent=lambda: old_vmod.dia_noshift(m.data, offs, x),
                          change=lambda: vmod.dia_noshift(m.data, offs, x))
+        elif kernel.startswith("dia_roll2d"):
+            rows = int(kernel.rsplit("_r", 1)[1])
+            calls = dict(
+                parent=lambda: old_vmod.dia_roll2d(m.data, offs, x, rows=rows),
+                change=lambda: vmod.dia_roll2d(m.data, offs, x, rows=rows))
+            config = vmod.card_plan(n, offs, rows, 0)._asdict()
         else:
             calls = dict(parent=lambda: old_k1.dia_spmv(m.data, offs, x, n),
                          change=lambda: dmod.dia_spmv(m.data, offs, x, n))
@@ -1481,7 +1538,7 @@ def compare_parent(torch, dmod, vmod, pf, rates, parent):
         mean = lambda who, key: float(np.mean([t[key] for t in turns[who]]))
         out[label] = dict(
             kernel=kernel, n=n, d=d, dtype=str(dtype).split(".")[1],
-            bitwise_equal_parent=bitwise, config=dmod.card_launch(n, 1, 0),
+            bitwise_equal_parent=bitwise, config=config,
             parent=turns["parent"], change=turns["change"],
             parent_ms=mean("parent", "ms"), change_ms=mean("change", "ms"),
             parent_enqueue_us=mean("parent", "enqueue_us"),
@@ -1494,6 +1551,40 @@ def compare_parent(torch, dmod, vmod, pf, rates, parent):
             raise RuntimeError(f"the new {kernel} is not bitwise the parent's on {label}")
         del m, x, csr
         torch.cuda.empty_cache()
+    return out
+
+
+def compare_roll2d_routes(torch, vmod, pf):
+    """P4's two routes for the data planes at config #2's f32 shape (d=5,
+    n=10^6, where 4 divides n) and rows of ``P4_PARENT_ROWS``: the ring
+    (bulk copies into stages in shared memory) and the loads (each
+    thread loads its row's planes), each with the plan's cluster and
+    block size, interleaved (ring, loads, loads, ring) under one timer,
+    bitwise equal."""
+    timer = Timer(torch)
+    m = pf.dia_from_scipy(laplacian_2d(G_FULL), dtype=torch.float32)
+    n = m.n_rows
+    x = torch.randn(n, dtype=torch.float32, device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for rows in P4_PARENT_ROWS:
+        plans = {route: vmod.roll2d_plan(n, m.offsets, rows, sms, tma_planes=route == "ring")
+                 for route in ("ring", "loads")}
+        calls = {route: (lambda plan=plan: vmod.roll2d_launch(m.data, m.offsets, x, plan))
+                 for route, plan in plans.items()}
+        bitwise = bool(torch.equal(calls["ring"](), calls["loads"]()))
+        turns = {"ring": [], "loads": []}
+        for route in ("ring", "loads", "loads", "ring"):
+            turns[route].append(timer.stats(calls[route]))
+        out[rows] = dict(
+            rows=rows, bitwise_equal=bitwise,
+            plans={r: p._asdict() for r, p in plans.items()}, turns=turns,
+            ring_ms=float(np.mean([t["ms"] for t in turns["ring"]])),
+            loads_ms=float(np.mean([t["ms"] for t in turns["loads"]])),
+        )
+        emit(phase="p4_routes", **out[rows])
+        if not bitwise:
+            raise RuntimeError(f"P4's two routes disagree at rows={rows}")
     return out
 
 
@@ -1545,6 +1636,7 @@ def main(argv):
     rates = card_rates(name)
     if parent is not None:
         phase("k1_parent_vs_change", compare_parent, torch, dmod, vmod, pf, rates, parent)
+        phase("p4_routes", compare_roll2d_routes, torch, vmod, pf)
         emit(phase_walls=walls, total_s=sum(walls.values()))
         return 0
     stream_t = phase("stream_probe", phase_stream, torch, smod, rates[0])
@@ -1565,7 +1657,7 @@ def main(argv):
     dia243 = ds_cases["g243"][0]
     del ds_cases
     torch.cuda.empty_cache()
-    var_t, var_errs, var_launches, best_rows = phase(
+    var_t, var_errs, var_launches = phase(
         "dia_variants", phase_dia_variants, torch, vmod, dmod, pf, rates
     )
     p5_t, p5_err, p5_launches = phase(
@@ -1627,16 +1719,24 @@ def main(argv):
         kernel_entry(
             "dia_noshift", var_launches["dia_noshift"], var_errs["dia_noshift"],
             var_t["dia_noshift"], "d=5, n=10^6, float32 (g=1000 2-D Laplacian)",
-            k1_f32_ms=var_t["k1_f32"]["ms"],
+            k1_f32_ms=var_t["k1_f32_g1000"]["ms"],
             launches_path="the dia_variants phase (a probe, on no solver path)",
         ),
         kernel_entry(
             "dia_roll2d", var_launches["dia_roll2d"],
             max(v for k, v in var_errs.items() if k.startswith("dia_roll2d")),
-            var_t[f"dia_roll2d_r{best_rows}"],
-            f"d=5, n=10^6, float32, rows={best_rows} (the fastest of {list(ROLL2D_ROWS)})",
-            rows_sweep={r: var_t[f"dia_roll2d_r{r}"] for r in ROLL2D_ROWS},
-            k1_f32_ms=var_t["k1_f32"]["ms"],
+            var_t["dia_roll2d_g1000_r32"],
+            "d=5, n=10^6, float32, rows=32 (g=1000 2-D Laplacian); every rows "
+            f"of {list(ROLL2D_ROWS)} and the 61^3 27-point f32 planes in the sweeps",
+            rows_sweep={
+                shape: {r: {k: var_t[f"dia_roll2d_{shape}_r{r}"][k]
+                            for k in ("ms", "min_ms", "max_ms", "bound_ms",
+                                      "library_ms", "plain_ms", "ctas", "plan")}
+                        for r in ROLL2D_ROWS}
+                for shape in ("g1000", f"g{K1_LEVELS[0][1]}")
+            },
+            k1_f32={shape: var_t[f"k1_f32_{shape}"]
+                    for shape in ("g1000", f"g{K1_LEVELS[0][1]}")},
             launches_path="the dia_variants phase (a probe, on no solver path)",
         ),
         kernel_entry(

@@ -10,43 +10,65 @@
 //     on purpose: its gap to K1 at the same shape is what the d shifted
 //     reads of x cost.
 //   dia_roll2d (tpu_dia_variants.py:110): the correct y = A x, with x
-//     viewed as rows of 128. On the TPU each block held an x window of
-//     (rows + 2 pad_rows) x 128 in VMEM and built every shifted operand
-//     with sublane and lane rolls. The rolls are a TPU register-layout
-//     device and do not carry over; the idea does: each block stages
-//     its x window once in shared memory and reads the d shifted
-//     operands from there instead of from L1/L2.
+//     viewed as rows of 128. On the TPU each block of rows x 128 outputs
+//     held its x window in VMEM, read once from device memory, and built
+//     every shifted operand with sublane and lane rolls. The rolls are a
+//     TPU register-layout device and do not carry over; the question
+//     does: does reading x from a window staged once per tile of
+//     rows x 128 outputs beat K1's reads of x through L1/L2?
 //
 // What bounds them: memory. Each reads d + 1 f32 values and writes one
 // per row: (d + 2) * 4 * n bytes, 28 MB for the 5-point Laplacian at
 // n = 10^6, 8.4 us at an H100 SXM's 3.35 TB/s; the d multiply-adds per
-// row are far below the f32 rate.
+// row are far below the f32 rate. So the lever is bytes in flight on
+// every SM.
 //
-// What the design does about it:
-//   noshift: K1's own body and grid (dia_rows.cuh: for the same n and
-//     d the same block size, the same staging of loads through shared
-//     memory or registers, d unrolled as in K1), with the shifted reads
-//     of x replaced by one read of x[i] per row; so its gap to K1
-//     measures the shifted reads and nothing else.
-//   roll2d: a block owns rows x 128 outputs. It copies the window of
-//     (rows + 2 pad_rows) x 128 x values, pad_rows * 128 before its
-//     first output and after its last (zero outside [0, n)), into
-//     dynamic shared memory with coalesced 16-byte loads, synchronizes,
-//     then each thread does the d multiply-adds of its outputs in offset
-//     order, reading x[i + off] at window position
-//     pad_rows * 128 + (i - first) + off, consecutive across a warp (no
-//     bank conflicts). pad_rows * 128 >= max|off| + 128 keeps every read
-//     inside the window. rows is a parameter: the window takes
-//     (rows + 2 pad_rows) * 512 bytes, 143,360 at rows = 256 and
-//     pad_rows = 12; above 48 KB the launch raises the kernel's dynamic
-//     shared-memory limit, and a window above the 227 KB a block may use
-//     is refused.
+// noshift: K1's own body and grid (dia_rows.cuh: for the same n and d
+// the same block size, the same staging of loads through shared memory
+// or registers, d unrolled as in K1), with the shifted reads of x
+// replaced by one read of x[i] per row; so its gap to K1 measures the
+// shifted reads and nothing else.
+//
+// roll2d: one tile of T = rows x 128 outputs per thread-block cluster
+// of C CTAs (C in 1, 2, 4, 8, 16, from the wrapper's plan,
+// ops/dia_variants.py::roll2d_plan), so the grid is tiles x C CTAs and
+// fills the card at every rows rather than shrinking with it.
+//   * The window. The tile's window is its T outputs plus a halo of H =
+//     max|off| rounded up to 4 floats on each side: W = T + 2H values of
+//     x, read once from device memory. CTA c of the cluster holds window
+//     positions [c S, (c + 1) S), S = round_up(W / C, 4) >= T / C: one
+//     bulk copy (TMA, cp.async.bulk ... mbarrier::complete_tx) issued by
+//     one thread, for the part that lies in [0, n & ~3); the few values
+//     in [n & ~3, n) by plain loads and everything outside [0, n) as
+//     plain stores of zero, into regions the copy does not write. That
+//     zero is the plain version's zero padding. After one cluster
+//     barrier every CTA reads x[i + off] at window position H + (i -
+//     first) + off from whichever CTA holds it, through distributed
+//     shared memory (mapa + ld.shared::cluster); a second cluster barrier
+//     keeps each CTA's window alive until its neighbours are done.
+//   * The data planes, two routes (the plan's tma_planes):
+//       ring: a producer warp streams each plane's next 256 values into a
+//         ring of stages in shared memory by bulk copies on a "full"
+//         mbarrier per stage, and 256 consumer threads take one output
+//         each per stage and free it on an "empty" mbarrier. Bytes in
+//         flight are the ring's (up to 8 stages), not the thread count's,
+//         and the first stages are in flight while the window is copied.
+//         Bulk copies need 16-byte aligned addresses: plane k starts at k
+//         n floats, so the ring is taken only when 4 divides n.
+//       loads: K1's way, each thread issues all d plane loads of its
+//         output (and the d window reads) before its adds. Any n.
+//     Which route the plan takes where both are legal is the faster of
+//     the two in chip_smoke.py's route comparison at rows = 32 and 256
+//     (PERF.md, PR 6); odd n always takes the loads.
+//   * d = 5 and d = 27 (the shapes the chip run times) are unrolled;
+//     any other d runs one diagonal at a time through the same code.
 //
 // Numerics: every product and sum is a round-to-nearest intrinsic
-// (__fmul_rn, __fadd_rn), which nvcc never contracts into an FMA, so
-// both kernels are bitwise equal to their plain PyTorch versions, and
-// roll2d is bitwise equal to K1's plain version (the same products added
-// in the same order).
+// (__fmul_rn, __fadd_rn), which nvcc never contracts into an FMA, added
+// in offset order from the first term, so both kernels are bitwise equal
+// to their plain PyTorch versions, and roll2d is bitwise equal to K1's
+// plain version (the same products added in the same order). Where x
+// comes from (TMA, DSMEM) never changes the order of the adds.
 
 #include <cuda_runtime.h>
 
@@ -57,49 +79,334 @@
 namespace {
 
 constexpr int kMaxDiags = 64;
-constexpr int kThreads = 256;
-constexpr int kLanes = 128;
 constexpr int kMaxSharedBytes = 227 * 1024;
 
-struct DiaOffsets {
-  int count;
+// roll2d
+constexpr int kMaxConsumers = 512;  // threads that compute, one output each at a time
+constexpr int kMaxStages = 8;
+constexpr int kMaxCluster = 16;
+constexpr uint32_t kCopyPiece = 1u << 15;  // bytes per bulk copy instruction
+
+struct Roll2dArgs {
+  const float* data;
+  const float* x;
+  float* y;
+  int64_t n;
+  int tile;     // T = rows * 128 outputs per cluster
+  int per_cta;  // T / C outputs per CTA
+  int halo;     // H: max|off| rounded up to 4
+  int share;    // S: window values each CTA holds
+  int stages;   // ring stages (ring route), else 0
+  int count;    // d
   int64_t off[kMaxDiags];
 };
 
-__global__ void __launch_bounds__(kThreads)
-    roll2d_kernel(const float* __restrict__ data, const float* __restrict__ x,
-                  float* __restrict__ y, int64_t n, DiaOffsets offs,
-                  int rows, int pad_rows) {
-  extern __shared__ float4 window4[];
-  float* window = reinterpret_cast<float*>(window4);
-  const int64_t first = int64_t(blockIdx.x) * rows * kLanes;
-  const int64_t base = first - int64_t(pad_rows) * kLanes;  // multiple of 128
-  const int win4 = (rows + 2 * pad_rows) * kLanes / 4;
-  for (int t = threadIdx.x; t < win4; t += blockDim.x) {
-    const int64_t j = base + 4 * int64_t(t);
-    float4 v;
-    if (j >= 0 && j + 3 < n) {
-      v = reinterpret_cast<const float4*>(x)[j / 4];
-    } else {
-      v.x = (j >= 0 && j < n) ? x[j] : 0.0f;
-      v.y = (j + 1 >= 0 && j + 1 < n) ? x[j + 1] : 0.0f;
-      v.z = (j + 2 >= 0 && j + 2 < n) ? x[j + 2] : 0.0f;
-      v.w = (j + 3 >= 0 && j + 3 < n) ? x[j + 3] : 0.0f;
+__device__ __forceinline__ uint32_t shared_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Waits for the completion of the phase of parity `parity`. A wait that
+// has not ended after 2^31 cycles (about a second) traps: the launch then
+// fails with an error instead of holding the card.
+__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
+  const long long start = clock64();
+  uint32_t done = 0;
+  do {
+    if (clock64() - start > (1ll << 31)) __trap();
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// bytes (a multiple of 16, both addresses 16-byte aligned) global ->
+// this CTA's shared memory, counted on mbarrier bar.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const float* src,
+                                          uint32_t bytes, uint32_t bar) {
+  for (uint32_t done = 0; done < bytes; done += kCopyPiece) {
+    const uint32_t piece = bytes - done < kCopyPiece ? bytes - done : kCopyPiece;
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(dst + done),
+        "l"(reinterpret_cast<const char*>(src) + done), "r"(piece), "r"(bar)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The f32 at shared address `addr` of CTA `rank` of this cluster.
+__device__ __forceinline__ float load_cluster(uint32_t addr, uint32_t rank) {
+  uint32_t remote;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(addr), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote));
+  return v;
+}
+
+// Window position w = q S + r + p of the CTA-local output p (p < T / C <=
+// S, so r + p < 2 S): the CTA that holds it and the address there.
+__device__ __forceinline__ float window_at(uint32_t window, int2 qr, int p,
+                                           int share) {
+  const int t = qr.y + p;
+  const bool next = t >= share;
+  return load_cluster(window + 4u * uint32_t(next ? t - share : t),
+                      uint32_t(qr.x + (next ? 1 : 0)));
+}
+
+// y at CTA-local output p, from its d plane values a[] (kD > 0): all
+// window reads, then the d terms in offset order, from the first.
+template <int kD>
+__device__ __forceinline__ void store_row(const Roll2dArgs& A, const int2* qr,
+                                          uint32_t window, int64_t out0, int p,
+                                          const float (&a)[kD]) {
+  float b[kD];
+#pragma unroll
+  for (int k = 0; k < kD; ++k) b[k] = window_at(window, qr[k], p, A.share);
+  float acc = __fmul_rn(a[0], b[0]);
+#pragma unroll
+  for (int k = 1; k < kD; ++k) acc = __fadd_rn(acc, __fmul_rn(a[k], b[k]));
+  A.y[out0 + p] = acc;
+}
+
+// Any other d: one diagonal at a time; plane(k) gives data[k, i].
+template <typename Plane>
+__device__ __forceinline__ void store_row_generic(const Roll2dArgs& A,
+                                                  const int2* qr,
+                                                  uint32_t window, int64_t out0,
+                                                  int p, Plane plane) {
+  float acc = __fmul_rn(plane(0), window_at(window, qr[0], p, A.share));
+  for (int k = 1; k < A.count; ++k) {
+    acc = __fadd_rn(acc, __fmul_rn(plane(k), window_at(window, qr[k], p, A.share)));
+  }
+  A.y[out0 + p] = acc;
+}
+
+// Block: `consumers` threads (256 or 512, the plan's), plus one producer
+// warp on the ring route. Dynamic shared memory: the window share (S
+// floats, padded to 128 bytes), then the ring (stages x d x consumers
+// floats).
+template <int kD, bool kRing>
+__global__ void __launch_bounds__(kMaxConsumers + 32)
+    roll2d_kernel(const __grid_constant__ Roll2dArgs A) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * kMaxStages];
+  __shared__ int2 qr[kMaxDiags];
+  const int d = kD > 0 ? kD : A.count;
+  const int consumers = int(blockDim.x) - (kRing ? 32 : 0);
+  const int C = A.tile / A.per_cta;
+  const uint32_t c = cluster_rank();
+  const int64_t first = int64_t(blockIdx.x / C) * A.tile;
+  const int64_t out0 = first + int64_t(c) * A.per_cta;  // this CTA's first output
+  const int64_t left = A.n - out0;
+  const int valid = left <= 0 ? 0 : (left < A.per_cta ? int(left) : A.per_cta);
+  const int chunks = (valid + consumers - 1) / consumers;
+  float* window = reinterpret_cast<float*>(smem);
+  const uint32_t window_addr = shared_addr(window);
+  float* ring = reinterpret_cast<float*>(
+      smem + ((size_t(A.share) * 4 + 127) / 128) * 128);
+  const uint32_t win_bar = shared_addr(&bars[0]);
+  auto full = [&](int s) { return shared_addr(&bars[1 + s]); };
+  auto empty = [&](int s) { return shared_addr(&bars[1 + kMaxStages + s]); };
+
+  // Window positions [c S, (c + 1) S) are x[g0 .. g0 + S). The bulk
+  // copy takes x[b0 .. b1), that range within [0, n & ~3) (empty: b0 =
+  // b1 = g0); plain stores fill the rest.
+  const int64_t g0 = first - A.halo + int64_t(c) * A.share;
+  const int64_t g1 = g0 + A.share;
+  const int64_t n4 = A.n & ~int64_t(3);
+  int64_t b0 = g0 < 0 ? 0 : g0;
+  int64_t b1 = g1 < n4 ? g1 : n4;
+  if (b1 <= b0) b0 = b1 = g0;
+
+  if (threadIdx.x == 0) {
+    bar_init(win_bar, 1);
+    if constexpr (kRing) {
+      for (int s = 0; s < A.stages; ++s) {
+        bar_init(full(s), 1);
+        bar_init(empty(s), consumers);
+      }
     }
-    window4[t] = v;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int k = threadIdx.x; k < d; k += blockDim.x) {
+    // w = H + c T/C + off_k + p for output p; H + off_k >= 0.
+    const int64_t base = int64_t(A.halo) + int64_t(c) * A.per_cta + A.off[k];
+    qr[k] = make_int2(int(base / A.share), int(base % A.share));
   }
   __syncthreads();
-  const int centre = pad_rows * kLanes;
-  for (int e = threadIdx.x; e < rows * kLanes; e += blockDim.x) {
-    const int64_t i = first + e;
-    if (i >= n) break;
-    float acc = 0.0f;
-    for (int k = 0; k < offs.count; ++k) {
-      const float term =
-          __fmul_rn(data[k * n + i], window[centre + e + offs.off[k]]);
-      acc = k == 0 ? term : __fadd_rn(acc, term);
+
+  const bool producer = kRing && int(threadIdx.x) >= consumers;
+  if (int(threadIdx.x) == (kRing ? consumers : 0)) {
+    const uint32_t bytes = uint32_t(b1 - b0) * 4u;
+    bar_expect(win_bar, bytes);
+    if (bytes) bulk_copy(window_addr + uint32_t(b0 - g0) * 4u, A.x + b0, bytes, win_bar);
+  }
+  if (producer) {
+    cluster_arrive();  // the consumers release the window
+    if (int(threadIdx.x) == consumers) {
+      for (int i = 0; i < chunks; ++i) {
+        const int s = i % A.stages;
+        if (i >= A.stages) bar_wait(empty(s), uint32_t((i / A.stages - 1) & 1));
+        const int len = valid - i * consumers < consumers ? valid - i * consumers : consumers;
+        const uint32_t bytes = uint32_t(len) * 4u;  // 4 divides n, so len
+        bar_expect(full(s), bytes * uint32_t(d));
+        for (int k = 0; k < d; ++k) {
+          bulk_copy(shared_addr(ring + (size_t(s) * d + k) * consumers),
+                    A.data + int64_t(k) * A.n + out0 + int64_t(i) * consumers, bytes,
+                    full(s));
+        }
+      }
     }
-    y[i] = acc;
+    __syncwarp();
+    cluster_wait();
+  } else {
+    const int tid = threadIdx.x;
+    auto plane_at = [&](int p, int k) {
+      return __ldg(A.data + int64_t(k) * A.n + out0 + p);
+    };
+    // Loads route: the first output's plane loads go out before the wait
+    // for the window.
+    float a[kD > 0 ? kD : 1];
+    if constexpr (!kRing && kD > 0) {
+      if (tid < valid) {
+#pragma unroll
+        for (int k = 0; k < kD; ++k) a[k] = plane_at(tid, k);
+      }
+    }
+    // Plain stores into the parts of the share the copy does not write.
+    for (int64_t l = tid; l < b0 - g0; l += consumers) {
+      const int64_t g = g0 + l;
+      window[l] = g >= 0 && g < A.n ? A.x[g] : 0.0f;
+    }
+    for (int64_t l = (b1 - g0) + tid; l < A.share; l += consumers) {
+      const int64_t g = g0 + l;
+      window[l] = g >= 0 && g < A.n ? A.x[g] : 0.0f;
+    }
+    bar_wait(win_bar, 0);
+    cluster_arrive();
+    cluster_wait();
+    if constexpr (kRing) {
+      for (int i = 0; i < chunks; ++i) {
+        const int s = i % A.stages;
+        bar_wait(full(s), uint32_t((i / A.stages) & 1));
+        const float* stage = ring + size_t(s) * d * consumers + tid;
+        const int p = i * consumers + tid;
+        if (p < valid) {
+          if constexpr (kD > 0) {
+#pragma unroll
+            for (int k = 0; k < kD; ++k) a[k] = stage[k * consumers];
+            store_row<kD>(A, qr, window_addr, out0, p, a);
+          } else {
+            store_row_generic(A, qr, window_addr, out0, p,
+                              [&](int k) { return stage[k * consumers]; });
+          }
+        }
+        bar_arrive(empty(s));
+      }
+    } else if constexpr (kD > 0) {
+      // d = 5: two outputs' plane loads in flight, the next one's issued
+      // before this one's window reads. d = 27 keeps one (a second would
+      // take 79 registers a thread and halve the CTAs an SM holds).
+      constexpr bool kNext = kD <= 8;
+      for (int p = tid; p < valid; p += consumers) {
+        float next[kD];
+        if (kNext && p + consumers < valid) {
+#pragma unroll
+          for (int k = 0; k < kD; ++k) next[k] = plane_at(p + consumers, k);
+        }
+        store_row<kD>(A, qr, window_addr, out0, p, a);
+        if (p + consumers < valid) {
+#pragma unroll
+          for (int k = 0; k < kD; ++k) a[k] = kNext ? next[k] : plane_at(p + consumers, k);
+        }
+      }
+    } else {
+      for (int p = tid; p < valid; p += consumers) {
+        store_row_generic(A, qr, window_addr, out0, p,
+                          [&](int k) { return plane_at(p, k); });
+      }
+    }
+  }
+  // No CTA leaves while a neighbour may still read its window.
+  cluster_arrive();
+  cluster_wait();
+}
+
+template <int kD, bool kRing>
+cudaError_t roll2d_start(const Roll2dArgs& A, int64_t tiles, int cluster,
+                         int consumers, size_t smem, cudaStream_t stream) {
+  auto* kernel = roll2d_kernel<kD, kRing>;
+  cudaError_t err;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               int(smem));
+    if (err != cudaSuccess) return err;
+  }
+  if (cluster > 8) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(tiles * cluster));
+  cfg.blockDim = dim3(consumers + (kRing ? 32 : 0));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, A);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <bool kRing>
+cudaError_t roll2d_route(const Roll2dArgs& A, int64_t tiles, int cluster,
+                         int consumers, size_t smem, cudaStream_t stream) {
+  switch (A.count) {
+    case 5: return roll2d_start<5, kRing>(A, tiles, cluster, consumers, smem, stream);
+    case 27: return roll2d_start<27, kRing>(A, tiles, cluster, consumers, smem, stream);
+    default: return roll2d_start<0, kRing>(A, tiles, cluster, consumers, smem, stream);
   }
 }
 
@@ -121,36 +428,55 @@ int spectra_dia_noshift_f32(const float* data, const float* x, float* y,
                                            stream);
 }
 
-// x must be 16-byte aligned. pad_rows * 128 must exceed every |offset|
-// by at least 128 (the wrapper computes it as the TPU probe did).
+// P4 with the plan of ops/dia_variants.py::roll2d_plan: tiles of `tile`
+// outputs (a multiple of 128), `cluster` CTAs a tile, a halo of `halo`
+// floats (a multiple of 4, >= every |offset|), `share` window floats a
+// CTA (a multiple of 4, cluster * share >= tile + 2 halo, share >= tile /
+// cluster), `threads` computing threads a CTA (256 or 512), `stages` ring
+// stages of `threads` values a plane (0: the loads route). x must be
+// 16-byte aligned; on the ring route data too, and 4 must divide n.
 int spectra_dia_roll2d_f32(const float* data, const float* x, float* y,
                            int64_t n, const int64_t* offsets, int count,
-                           int rows, int pad_rows, void* stream) {
-  if (n < 1 || count < 1 || count > kMaxDiags || rows < 1 || pad_rows < 1) {
+                           int tile, int cluster, int halo, int share,
+                           int threads, int stages, void* stream) {
+  const bool cluster_ok = cluster == 1 || cluster == 2 || cluster == 4 ||
+                          cluster == 8 || cluster == 16;
+  if (n < 1 || count < 1 || count > kMaxDiags || tile < 128 || tile % 128 ||
+      !cluster_ok || cluster > kMaxCluster || tile % (4 * cluster) || halo < 0 ||
+      halo % 4 || share < 4 || share % 4 || share < tile / cluster ||
+      int64_t(share) * cluster < int64_t(tile) + 2 * int64_t(halo) ||
+      stages < 0 || stages > kMaxStages || (threads != 256 && threads != 512) ||
+      reinterpret_cast<uintptr_t>(x) % 16 ||
+      (stages > 0 && (n % 4 || reinterpret_cast<uintptr_t>(data) % 16))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int64_t smem = int64_t(rows + 2 * pad_rows) * kLanes * sizeof(float);
-  if (smem > kMaxSharedBytes) return static_cast<int>(cudaErrorInvalidValue);
-  DiaOffsets offs;
-  offs.count = count;
+  Roll2dArgs A;
+  A.data = data;
+  A.x = x;
+  A.y = y;
+  A.n = n;
+  A.tile = tile;
+  A.per_cta = tile / cluster;
+  A.halo = halo;
+  A.share = share;
+  A.stages = stages;
+  A.count = count;
   for (int k = 0; k < count; ++k) {
-    offs.off[k] = offsets[k];
+    A.off[k] = offsets[k];
     const int64_t a = offsets[k] < 0 ? -offsets[k] : offsets[k];
-    if (a + kLanes > int64_t(pad_rows) * kLanes) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
+    if (a > halo) return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      roll2d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t row_count = (n + kLanes - 1) / kLanes;
-  const int64_t blocks = (row_count + rows - 1) / rows;
-  roll2d_kernel<<<static_cast<unsigned>(blocks), kThreads,
-                  static_cast<size_t>(smem),
-                  static_cast<cudaStream_t>(stream)>>>(data, x, y, n, offs,
-                                                       rows, pad_rows);
-  return static_cast<int>(cudaGetLastError());
+  const size_t smem = (size_t(share) * 4 + 127) / 128 * 128 +
+                      size_t(stages) * count * threads * sizeof(float);
+  if (smem > size_t(kMaxSharedBytes) - 1024) {  // 1 KB of static shared memory
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t tiles = (n + tile - 1) / tile;
+  if (tiles * cluster > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      stages > 0 ? roll2d_route<true>(A, tiles, cluster, threads, smem, st)
+                 : roll2d_route<false>(A, tiles, cluster, threads, smem, st));
 }
 
 }  // extern "C"

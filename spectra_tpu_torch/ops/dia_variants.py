@@ -11,10 +11,13 @@ them beside K1 and K2 to take apart what K1's time is made of.
   :func:`spectra_tpu_torch.ops.dia_spmv.card_launch`) with the shifted
   reads removed, so what it saves against K1 is the cost of the shifted
   x reads.
-* :func:`dia_roll2d`: the correct ``y = A x`` with each block's x
-  window staged once in shared memory (the TPU probe's ``(rows, 128)``
-  VMEM window); its plain version transcribes the TPU body on the
-  ``(R, 128)`` layout with ``torch.roll`` and ``torch.where``.
+* :func:`dia_roll2d`: the correct ``y = A x`` with each tile of
+  ``rows`` x 128 outputs reading x from one window staged in shared
+  memory (the TPU probe's ``(rows, 128)`` VMEM window), shared across a
+  thread-block cluster; its launch comes from :func:`roll2d_plan`,
+  cached per shape by :func:`card_plan`. Its plain version transcribes
+  the TPU body on the ``(R, 128)`` layout with ``torch.roll`` and
+  ``torch.where``.
 * :func:`dia_spmv_f32`: exactly K1's function in f32, so it runs K1's
   own f32 kernel (``ops/dia_spmv.py``); the TPU probe's ``chunk`` was a
   VMEM tile size and does not carry over.
@@ -28,6 +31,8 @@ only); ``dia_spmv_f32`` counts in K1's ``LAUNCHES``.
 """
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -36,8 +41,26 @@ from spectra_tpu_torch.ops import dia_spmv as _k1
 
 LANES = 128
 
-#: Dynamic shared memory one block may use on Hopper.
+#: Shared memory one block may use on Hopper, and the part of it that
+#: ``roll2d``'s static arrays (mbarriers, per-diagonal indices) may take.
 MAX_SHARED_BYTES = 227 * 1024
+STATIC_SHARED_BYTES = 1024
+
+#: ``dia_roll2d``: thread-block cluster sizes (above 8 non-portable),
+#: computing threads a CTA, the threads an SM holds at once, ring stages
+#: and the bytes the ring aims at.
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+PORTABLE_CLUSTER = 8
+BLOCK_SIZES = (256, 512)
+THREADS_PER_SM = 2048
+MAX_STAGES = 8
+RING_BYTES = 32 * 1024
+
+#: Whether ``dia_roll2d`` streams the data planes by bulk copies through
+#: a ring in shared memory where 4 divides n (else each thread loads its
+#: row's planes, K1's way): the faster route at rows 32 and 256 on an
+#: H100 (PERF.md, ``chip_smoke.py``'s route comparison).
+PLANES_BY_TMA = True
 
 #: Kernel launches since import (or since a caller reset them to 0).
 LAUNCHES = {"dia_noshift": 0, "dia_roll2d": 0}
@@ -50,16 +73,121 @@ def _round_up(x: int, m: int) -> int:
 
 
 def pad_rows_for(offsets) -> int:
-    """Rows of 128 that the x window reaches past each side of a block:
-    ``round_up(round_up(max|off| + 128, 128) / 128, 4)``, as the TPU
-    probe chose it (12 for the g=1000 Laplacian)."""
+    """Rows of 128 that the TPU probe's x window reached past each side
+    of a block: ``round_up(round_up(max|off| + 128, 128) / 128, 4)``, a
+    Mosaic sublane rule (12 for the g=1000 Laplacian). The plain version
+    pads by it; the kernel pads by :func:`halo_for`."""
     maxoff = max(abs(int(o)) for o in offsets)
     return _round_up(_round_up(maxoff + LANES, LANES) // LANES, 4)
 
 
+def halo_for(offsets) -> int:
+    """Values of x that a tile's window reaches past each side of the
+    tile: max|off| rounded up to 4 floats (16 bytes, what a bulk copy
+    needs)."""
+    return _round_up(max(abs(int(o)) for o in offsets), 4)
+
+
 def window_bytes(offsets, rows: int) -> int:
-    """Shared memory that a ``dia_roll2d`` block of ``rows`` takes."""
-    return (rows + 2 * pad_rows_for(offsets)) * LANES * 4
+    """Bytes of a tile's x window, ``rows`` x 128 outputs plus the halo
+    on each side: what a tile reads of x from device memory, held in
+    shares across its cluster (:func:`roll2d_plan`)."""
+    return (rows * LANES + 2 * halo_for(offsets)) * 4
+
+
+class Roll2dPlan(NamedTuple):
+    """The launch of ``dia_roll2d``: ``tiles`` tiles of ``tile`` outputs,
+    each on a cluster of ``cluster`` CTAs that computes ``per_cta``
+    outputs a CTA with ``threads`` threads and holds ``share`` window
+    values a CTA; ``stages`` ring stages of the data planes (0: each
+    thread loads its row's planes); ``shared_bytes`` a CTA, static
+    arrays included."""
+
+    tile: int
+    tiles: int
+    cluster: int
+    per_cta: int
+    threads: int
+    halo: int
+    share: int
+    stages: int
+    shared_bytes: int
+
+    @property
+    def ctas(self) -> int:
+        return self.tiles * self.cluster
+
+
+def roll2d_plan(n: int, offsets, rows: int, sms: int, tma_planes=None,
+                cluster=None, threads=None) -> Roll2dPlan:
+    """The launch of ``dia_roll2d`` for ``n`` rows, ``offsets`` and
+    ``rows`` on a card of ``sms`` SMs.
+
+    A tile of ``rows`` x 128 outputs reads its x window once; the window
+    is split in ``cluster`` equal shares of a multiple of 4 values, one a
+    CTA, and each CTA computes its ``tile / cluster`` outputs with
+    ``threads`` threads. Of the (cluster, threads) pairs that fit in
+    shared memory and give at least as many CTAs as SMs (or as the tiles
+    allow), and of those the portable clusters (up to 8) where there are
+    any (clusters of 16 were slower when they filled the card: PERF.md),
+    the plan takes the fewest threads that still give one thread
+    per output within the ``THREADS_PER_SM`` the SMs hold at once; where
+    n is larger, the most threads that the SMs hold at once (one wave);
+    on a tie the smaller cluster, whose reads stay more in the CTA's own
+    share. The data planes go through a ring of ``stages`` stages when
+    ``tma_planes`` (default: where 4 divides n, if ``PLANES_BY_TMA``).
+    ``cluster``, ``threads`` and ``tma_planes`` override the rule for
+    ``chip_smoke.py``'s comparison of the routes. Raises ``ValueError``
+    when no cluster size fits in ``MAX_SHARED_BYTES``."""
+    if rows < 1:
+        raise ValueError("rows must be >= 1")
+    d = len(offsets)
+    if tma_planes is None:
+        tma_planes = PLANES_BY_TMA and n % 4 == 0
+    if tma_planes and n % 4:
+        raise ValueError("the ring route needs 4 to divide n")
+    tile = rows * LANES
+    tiles = -(-n // tile)
+    halo = halo_for(offsets)
+
+    def plan(c, t):
+        stage_bytes = d * t * 4
+        stages = max(2, min(MAX_STAGES, RING_BYTES // stage_bytes)) if tma_planes else 0
+        share = max(_round_up(-(-(tile + 2 * halo) // c), 4), 4)
+        shared = _round_up(share * 4, 128) + stages * stage_bytes + STATIC_SHARED_BYTES
+        return Roll2dPlan(tile, tiles, c, tile // c, t, halo, share, stages, shared)
+
+    plans = [plan(c, t)
+             for c in (CLUSTER_SIZES if cluster is None else (cluster,))
+             for t in (BLOCK_SIZES if threads is None else (threads,))]
+    plans = [p for p in plans if p.shared_bytes <= MAX_SHARED_BYTES]
+    if not plans:
+        raise ValueError(
+            f"the x window of {window_bytes(offsets, rows)} bytes does not fit "
+            f"the {MAX_SHARED_BYTES} bytes of shared memory a CTA may use even "
+            f"in shares of {CLUSTER_SIZES[-1]} (rows={rows}, max|off|={halo})"
+        )
+    wide = min(sms, max(p.ctas for p in plans))
+    plans = [p for p in plans if p.ctas >= wide]
+    portable = [p for p in plans if p.cluster <= PORTABLE_CLUSTER]
+    plans = portable or plans
+    total = lambda p: p.ctas * p.threads
+    at_once = THREADS_PER_SM * sms
+    enough = [p for p in plans if n <= total(p) <= at_once]
+    if enough:
+        return min(enough, key=lambda p: (total(p), p.cluster))
+    held = [p for p in plans if total(p) <= at_once]
+    if held:
+        return min(held, key=lambda p: (-total(p), p.cluster))
+    return min(plans, key=lambda p: (total(p), p.cluster))
+
+
+@functools.lru_cache(maxsize=None)
+def card_plan(n: int, offsets: tuple, rows: int, index: int) -> Roll2dPlan:
+    """:func:`roll2d_plan` on CUDA device ``index``, computed once per
+    shape."""
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return roll2d_plan(n, offsets, rows, sms)
 
 
 def dia_noshift_plain(data, x):
@@ -160,29 +288,30 @@ def dia_noshift(data, offsets, x):
 
 
 def dia_roll2d(data, offsets, x, rows: int = 256):
-    """``y = A x`` for f32 row-aligned DIA ``data`` (d, n), each block of
-    ``rows`` x 128 outputs reading x from a window staged in shared
-    memory."""
+    """``y = A x`` for f32 row-aligned DIA ``data`` (d, n), each tile of
+    ``rows`` x 128 outputs reading x from one window staged in shared
+    memory across a thread-block cluster."""
     offsets = tuple(int(o) for o in offsets)
     _check(data, offsets, x)
     if rows < 1:
         raise ValueError("rows must be >= 1")
     if x.device.type == "cpu":
         return dia_roll2d_plain(data, offsets, x, rows)
-    if window_bytes(offsets, rows) > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"the x window of {window_bytes(offsets, rows)} bytes exceeds "
-            f"the {MAX_SHARED_BYTES} bytes of shared memory a block may use"
-        )
-    if x.data_ptr() % 16:
-        raise ValueError("x must be 16-byte aligned")
-    p = ctypes.c_void_p
+    return roll2d_launch(data, offsets, x, card_plan(x.shape[0], offsets, rows,
+                                                     x.device.index))
+
+
+def roll2d_launch(data, offsets, x, plan: Roll2dPlan):
+    """One launch of the ``dia_roll2d`` kernel on CUDA tensors with
+    ``plan`` (``chip_smoke.py`` times both plane routes through it)."""
+    if x.data_ptr() % 16 or (plan.stages and data.data_ptr() % 16):
+        raise ValueError("x (and data, on the ring route) must be 16-byte aligned")
+    p, i = ctypes.c_void_p, ctypes.c_int
     offs = (ctypes.c_int64 * len(offsets))(*offsets)
     return _launch(
-        "dia_roll2d",
-        [p, p, p, ctypes.c_int64, p, ctypes.c_int, ctypes.c_int, ctypes.c_int, p],
-        x, data.data_ptr(), x.data_ptr(), x.shape[0], offs, len(offsets),
-        int(rows), pad_rows_for(offsets),
+        "dia_roll2d", [p, p, p, ctypes.c_int64, p, i, i, i, i, i, i, i, p], x,
+        data.data_ptr(), x.data_ptr(), x.shape[0], offs, len(offsets),
+        plan.tile, plan.cluster, plan.halo, plan.share, plan.threads, plan.stages,
     )
 
 

@@ -268,12 +268,30 @@ def test_stream_probe_matches_plain_on_card(cuda):
         assert torch.equal(y, x * 2)
 
 
+def _stencil27(g):
+    return tuple(sorted(a * g * g + b * g + c for a in (-1, 0, 1)
+                        for b in (-1, 0, 1) for c in (-1, 0, 1)))
+
+
+#: P4 beyond the Laplacians, as (n, offsets, rows): n odd, the 27-point
+#: planes at a small g with n odd, offsets larger than one CTA's slice,
+#: n = 1 and rows = 1.
+ROLL2D_CASES = [
+    (9001, (-700, -129, -128, -1, 0, 3, 128, 300), 32),
+    (7**3, _stencil27(7), 8),
+    (50001, (-20000, -1, 0, 1, 20000), 8),
+    (1, (0,), 32),
+    (50001, (-20000, -1, 0, 1, 20000), 1),
+]
+
+
 @pytest.mark.cuda
 def test_dia_probes_match_plain_on_card(cuda):
     """The two probe kernels of ``csrc/dia_variants.cu`` against their
     plain versions (bitwise: every step a separately rounded f32
     operation), ``dia_roll2d`` also against K1's plain version, at every
-    ``rows`` the chip run times; ``dia_spmv_f32`` is K1's f32 kernel."""
+    ``rows`` the chip run times and at the cases of ``ROLL2D_CASES``,
+    one launch a call; ``dia_spmv_f32`` is K1's f32 kernel."""
     g = 100
     lap1 = sps.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(g, g))
     lap = (sps.kron(sps.eye(g), lap1) + sps.kron(lap1, sps.eye(g))).tocsr()
@@ -299,6 +317,15 @@ def test_dia_probes_match_plain_on_card(cuda):
         assert dmod.LAUNCHES == k1_before + 1
         assert dv.LAUNCHES["dia_noshift"] == before["dia_noshift"] + 1
         assert dv.LAUNCHES["dia_roll2d"] == before["dia_roll2d"] + 4
+    for n, offsets, rows in ROLL2D_CASES:
+        data = torch.randn((len(offsets), n), dtype=torch.float32, device="cuda")
+        x = torch.randn(n, dtype=torch.float32, device="cuda")
+        before = dv.LAUNCHES["dia_roll2d"]
+        y = dv.dia_roll2d(data, offsets, x, rows=rows)
+        torch.cuda.synchronize()
+        assert dv.LAUNCHES["dia_roll2d"] == before + 1
+        assert torch.equal(y, dv.dia_roll2d_plain(data, offsets, x, rows))
+        assert torch.equal(y, dmod.dia_spmv_plain(data, offsets, x, n))
 
 
 @pytest.mark.cuda
@@ -307,5 +334,8 @@ def test_dia_probes_raise_for_what_they_do_not_take(cuda):
     offs = (-1000, -1, 0, 1, 1000)
     with pytest.raises(TypeError):
         dv.dia_roll2d(data, offs, torch.ones(4096, dtype=torch.float64, device="cuda"))
+    # A window whose share exceeds 227 KB a CTA even in clusters of 16.
+    far = (-600_000, 0, 600_000)
     with pytest.raises(ValueError):
-        dv.dia_roll2d(data.float(), offs, torch.ones(4096, device="cuda"), rows=512)
+        dv.dia_roll2d(torch.ones((3, 4096), device="cuda"), far,
+                      torch.ones(4096, device="cuda"), rows=256)

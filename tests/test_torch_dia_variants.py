@@ -136,9 +136,16 @@ def _lap3d(g):
 
 def test_window_rule_and_input_checks():
     offsets = (-1000, -1, 0, 1, 1000)
+    # The TPU probe's window rule, which the plain version transcribes.
     assert dv.pad_rows_for(offsets) == 12
-    assert dv.window_bytes(offsets, 256) == 143_360
-    assert dv.window_bytes(offsets, 512) > dv.MAX_SHARED_BYTES
+    # The kernel's window: the tile plus max|off| rounded up to 4 a side,
+    # held in shares across a cluster, at most 227 KB a CTA.
+    assert dv.halo_for(offsets) == 1000
+    assert dv.halo_for((-1001, 0, 3)) == 1004
+    assert dv.window_bytes(offsets, 256) == (256 * 128 + 2000) * 4
+    assert dv.roll2d_plan(10**6, offsets, 512, 132).shared_bytes <= dv.MAX_SHARED_BYTES
+    with pytest.raises(ValueError):
+        dv.roll2d_plan(4096, (-600_000, 0, 600_000), 256, 132)
     data = torch.ones((5, 64), dtype=torch.float64)
     with pytest.raises(TypeError):
         dv.dia_roll2d(data, offsets, torch.ones(64, dtype=torch.float64))
@@ -146,3 +153,114 @@ def test_window_rule_and_input_checks():
         dv.dia_noshift(data.float(), offsets[:3], torch.ones(64))
     with pytest.raises(ValueError):
         dv.dia_roll2d(data.float(), offsets, torch.ones(64), rows=0)
+
+
+def _stencil27(g):
+    return tuple(sorted(a * g * g + b * g + c for a in (-1, 0, 1)
+                        for b in (-1, 0, 1) for c in (-1, 0, 1)))
+
+
+#: (label, n, offsets): every offsets set these tests and the card's use.
+PLAN_SHAPES = [
+    ("laplacian_g1000", 10**6, (-1000, -1, 0, 1, 1000)),
+    ("laplacian_g1000_n1e5", 10**5, (-1000, -1, 0, 1, 1000)),
+    ("nine_offsets", 5000, (-300, -129, -128, -3, 0, 5, 127, 128, 260)),
+    ("diagonal", 300, (0,)),
+    ("laplacian_g40", 1600, (-40, -1, 0, 1, 40)),
+    ("laplacian_g200", 40000, (-200, -1, 0, 1, 200)),
+    ("stencil27_g61", 61**3, _stencil27(61)),
+    ("stencil27_g7", 7**3, _stencil27(7)),
+    ("band_n9001", 9001, (-700, -129, -128, -1, 0, 3, 128, 300)),
+    ("wide_offsets", 50001, (-20000, -1, 0, 1, 20000)),
+    ("n1", 1, (0,)),
+]
+SMS = 132
+
+
+@pytest.mark.parametrize("rows", [1, 8, 32, 256])
+@pytest.mark.parametrize("label, n, offsets", PLAN_SHAPES, ids=[s[0] for s in PLAN_SHAPES])
+def test_roll2d_plan(label, n, offsets, rows):
+    """The launch plan covers every tile once, pads by max|off| rounded up
+    to 4 floats, fits each CTA in shared memory, takes a legal cluster
+    size and fills the card wherever the tiles allow."""
+    plan = dv.roll2d_plan(n, offsets, rows, SMS)
+    assert plan.tile == rows * 128
+    assert (plan.tiles - 1) * plan.tile < n <= plan.tiles * plan.tile
+    assert plan.cluster in dv.CLUSTER_SIZES and plan.threads in dv.BLOCK_SIZES
+    assert plan.per_cta * plan.cluster == plan.tile and plan.per_cta % 4 == 0
+    maxoff = max(abs(o) for o in offsets)
+    assert maxoff <= plan.halo < maxoff + 4 and plan.halo % 4 == 0
+    assert plan.share % 4 == 0 and plan.share >= plan.per_cta
+    assert plan.share * plan.cluster >= plan.tile + 2 * plan.halo
+    assert plan.shared_bytes <= dv.MAX_SHARED_BYTES
+    stage_bytes = len(offsets) * plan.threads * 4
+    assert plan.stages == (0 if n % 4 or not dv.PLANES_BY_TMA
+                           else max(2, min(8, dv.RING_BYTES // stage_bytes)))
+    # The CTAs reach the SM count wherever the tiles allow (every cluster
+    # size fits at these shapes), in one wave unless the smallest launch
+    # already takes more.
+    assert plan.ctas >= min(SMS, plan.tiles * dv.CLUSTER_SIZES[-1])
+    total = plan.ctas * plan.threads
+    at_once = dv.THREADS_PER_SM * SMS
+    assert total <= at_once or (plan.cluster, plan.threads) == (1, dv.BLOCK_SIZES[0])
+    # One thread per output where portable clusters give that many and
+    # the card holds them at once.
+    if plan.tiles * dv.PORTABLE_CLUSTER * dv.BLOCK_SIZES[-1] >= n and n <= at_once:
+        assert total >= n
+    if plan.ctas * dv.PORTABLE_CLUSTER // plan.cluster >= SMS:
+        assert plan.cluster <= dv.PORTABLE_CLUSTER
+
+
+def _emulate_kernel(data, offsets, x, plan):
+    """The kernel's addressing in numpy: each CTA's window share as its
+    bulk copy and plain stores fill it, each read at (owner CTA, local
+    index) as the kernel computes them, the f32 terms in offset order."""
+    d, n = data.shape
+    C, S, H, T, Tc = plan.cluster, plan.share, plan.halo, plan.tile, plan.per_cta
+    n4 = n & ~3
+    y = np.empty(n, dtype=np.float32)
+    for t in range(plan.tiles):
+        first = t * T
+        shares = np.zeros((C, S), dtype=np.float32)
+        for c in range(C):
+            g0 = first - H + c * S
+            b0, b1 = max(g0, 0), min(g0 + S, n4)
+            if b1 <= b0:
+                b0 = b1 = g0
+            assert b0 % 4 == 0 and b1 % 4 == 0 and (b0 - g0) % 4 == 0
+            shares[c, b0 - g0 : b1 - g0] = x[b0:b1]  # the bulk copy
+            for l in [*range(0, b0 - g0), *range(b1 - g0, S)]:  # plain stores
+                g = g0 + l
+                shares[c, l] = x[g] if 0 <= g < n else 0.0
+        for c in range(C):
+            out0 = first + c * Tc
+            valid = min(max(n - out0, 0), Tc)
+            p = np.arange(valid)
+            acc = None
+            for k, off in enumerate(offsets):
+                q, r = divmod(H + c * Tc + off, S)
+                tt = r + p
+                nxt = tt >= S
+                owner, local = q + nxt, np.where(nxt, tt - S, tt)
+                assert (owner >= 0).all() and (owner < C).all()
+                term = data[k, out0 : out0 + valid] * shares[owner, local]
+                acc = term if acc is None else acc + term
+            y[out0 : out0 + valid] = acc
+    return y
+
+
+@pytest.mark.parametrize("sms", [1, 4, 132])
+@pytest.mark.parametrize("label, n, offsets", [
+    s for s in PLAN_SHAPES if s[1] <= 10**5 and s[0] != "laplacian_g1000_n1e5"
+], ids=lambda v: v if isinstance(v, str) else None)
+def test_roll2d_kernel_addressing_bitwise_equals_k1_plain(label, n, offsets, sms):
+    """The kernel's window shares and cluster reads, emulated, give K1's
+    plain product bitwise, for clusters of 1 to 16 (``sms`` 1 to 132)."""
+    rng = np.random.default_rng(n)
+    data = (rng.standard_normal((len(offsets), n)) * np.pi).astype(np.float32)
+    x = _x(n, seed=n + 1)
+    want = k1.dia_spmv_plain(torch.from_numpy(data), offsets, torch.from_numpy(x), n)
+    for rows in (1, 8):
+        plan = dv.roll2d_plan(n, offsets, rows, sms)
+        got = _emulate_kernel(data, offsets, x, plan)
+        assert np.array_equal(got, want.numpy())
