@@ -67,8 +67,7 @@ the port is imported, never jax or the JAX package.
 runs only the environment phase and K1, P3 and P4 of the checkout at
 ``CHECKOUT``, through its own wrappers, against this tree's, in turns
 (parent, change, change, parent), at every K1 shape of the paths, P5's,
-P3's and P4's (rows 32 and 256) and the launch floor, then P4's two
-routes for the data planes against each other.
+P3's and P4's (rows 32 and 256) and the launch floor.
 """
 
 import json
@@ -1554,40 +1553,6 @@ def compare_parent(torch, dmod, vmod, pf, rates, parent):
     return out
 
 
-def compare_roll2d_routes(torch, vmod, pf):
-    """P4's two routes for the data planes at config #2's f32 shape (d=5,
-    n=10^6, where 4 divides n) and rows of ``P4_PARENT_ROWS``: the ring
-    (bulk copies into stages in shared memory) and the loads (each
-    thread loads its row's planes), each with the plan's cluster and
-    block size, interleaved (ring, loads, loads, ring) under one timer,
-    bitwise equal."""
-    timer = Timer(torch)
-    m = pf.dia_from_scipy(laplacian_2d(G_FULL), dtype=torch.float32)
-    n = m.n_rows
-    x = torch.randn(n, dtype=torch.float32, device="cuda")
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    out = {}
-    for rows in P4_PARENT_ROWS:
-        plans = {route: vmod.roll2d_plan(n, m.offsets, rows, sms, tma_planes=route == "ring")
-                 for route in ("ring", "loads")}
-        calls = {route: (lambda plan=plan: vmod.roll2d_launch(m.data, m.offsets, x, plan))
-                 for route, plan in plans.items()}
-        bitwise = bool(torch.equal(calls["ring"](), calls["loads"]()))
-        turns = {"ring": [], "loads": []}
-        for route in ("ring", "loads", "loads", "ring"):
-            turns[route].append(timer.stats(calls[route]))
-        out[rows] = dict(
-            rows=rows, bitwise_equal=bitwise,
-            plans={r: p._asdict() for r, p in plans.items()}, turns=turns,
-            ring_ms=float(np.mean([t["ms"] for t in turns["ring"]])),
-            loads_ms=float(np.mean([t["ms"] for t in turns["loads"]])),
-        )
-        emit(phase="p4_routes", **out[rows])
-        if not bitwise:
-            raise RuntimeError(f"P4's two routes disagree at rows={rows}")
-    return out
-
-
 def kernel_entry(name, launches, max_abs_err, t, shape, **extra):
     replaces, function = REPLACES[name]
     return dict(
@@ -1636,7 +1601,6 @@ def main(argv):
     rates = card_rates(name)
     if parent is not None:
         phase("k1_parent_vs_change", compare_parent, torch, dmod, vmod, pf, rates, parent)
-        phase("p4_routes", compare_roll2d_routes, torch, vmod, pf)
         emit(phase_walls=walls, total_s=sum(walls.values()))
         return 0
     stream_t = phase("stream_probe", phase_stream, torch, smod, rates[0])

@@ -32,7 +32,9 @@
 // roll2d: one tile of T = rows x 128 outputs per thread-block cluster
 // of C CTAs (C in 1, 2, 4, 8, 16, from the wrapper's plan,
 // ops/dia_variants.py::roll2d_plan), so the grid is tiles x C CTAs and
-// fills the card at every rows rather than shrinking with it.
+// fills the card at every rows rather than shrinking with it; the plan
+// takes C and the block size (256-1024 threads) so that all tiles run in
+// one wave, asking the card how many clusters it holds at once.
 //   * The window. The tile's window is its T outputs plus a halo of H =
 //     max|off| rounded up to 4 floats on each side: W = T + 2H values of
 //     x, read once from device memory. CTA c of the cluster holds window
@@ -42,26 +44,24 @@
 //     in [n & ~3, n) by plain loads and everything outside [0, n) as
 //     plain stores of zero, into regions the copy does not write. That
 //     zero is the plain version's zero padding. After one cluster
-//     barrier every CTA reads x[i + off] at window position H + (i -
-//     first) + off from whichever CTA holds it, through distributed
-//     shared memory (mapa + ld.shared::cluster); a second cluster barrier
-//     keeps each CTA's window alive until its neighbours are done.
-//   * The data planes, two routes (the plan's tma_planes):
-//       ring: a producer warp streams each plane's next 256 values into a
-//         ring of stages in shared memory by bulk copies on a "full"
-//         mbarrier per stage, and 256 consumer threads take one output
-//         each per stage and free it on an "empty" mbarrier. Bytes in
-//         flight are the ring's (up to 8 stages), not the thread count's,
-//         and the first stages are in flight while the window is copied.
-//         Bulk copies need 16-byte aligned addresses: plane k starts at k
-//         n floats, so the ring is taken only when 4 divides n.
-//       loads: K1's way, each thread issues all d plane loads of its
-//         output (and the d window reads) before its adds. Any n.
-//     Which route the plan takes where both are legal is the faster of
-//     the two in chip_smoke.py's route comparison at rows = 32 and 256
-//     (PERF.md, PR 6); odd n always takes the loads.
+//     barrier (a CTA barrier when C = 1) every CTA reads x[i + off] at
+//     window position H + (i - first) + off: from its own share by a
+//     plain shared load, from a neighbour's through distributed shared
+//     memory (mapa + ld.shared::cluster); a second cluster barrier keeps
+//     each CTA's window alive until its neighbours are done.
+//   * The data planes go K1's way: each thread issues all d plane loads
+//     of an output before its adds, the first output's before the wait
+//     for the window, and at d = 5 the next output's before this one's
+//     window reads. The other way, a producer warp streaming the planes
+//     by bulk copies through a ring of stages in shared memory (legal
+//     only where 4 divides n: plane k starts at k n floats), was slower
+//     at rows 32 and 256 on an H100 (PERF.md, PR 6), and is gone.
 //   * d = 5 and d = 27 (the shapes the chip run times) are unrolled;
 //     any other d runs one diagonal at a time through the same code.
+// What still holds it (PERF.md): the window's round trip, the cluster
+// barrier and the window reads form a phase that the single wave of
+// tiles cannot overlap with other tiles' plane loads, as K1's waves of
+// small blocks do.
 //
 // Numerics: every product and sum is a round-to-nearest intrinsic
 // (__fmul_rn, __fadd_rn), which nvcc never contracts into an FMA, added
@@ -82,8 +82,6 @@ constexpr int kMaxDiags = 64;
 constexpr int kMaxSharedBytes = 227 * 1024;
 
 // roll2d
-constexpr int kMaxConsumers = 512;  // threads that compute, one output each at a time
-constexpr int kMaxStages = 8;
 constexpr int kMaxCluster = 16;
 constexpr uint32_t kCopyPiece = 1u << 15;  // bytes per bulk copy instruction
 
@@ -96,7 +94,6 @@ struct Roll2dArgs {
   int per_cta;  // T / C outputs per CTA
   int halo;     // H: max|off| rounded up to 4
   int share;    // S: window values each CTA holds
-  int stages;   // ring stages (ring route), else 0
   int count;    // d
   int64_t off[kMaxDiags];
 };
@@ -115,11 +112,6 @@ __device__ __forceinline__ void bar_expect(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
                    bar),
                "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
                : "memory");
 }
 
@@ -180,70 +172,66 @@ __device__ __forceinline__ float load_cluster(uint32_t addr, uint32_t rank) {
   return v;
 }
 
-// Window position w = q S + r + p of the CTA-local output p (p < T / C <=
-// S, so r + p < 2 S): the CTA that holds it and the address there.
-__device__ __forceinline__ float window_at(uint32_t window, int2 qr, int p,
-                                           int share) {
-  const int t = qr.y + p;
-  const bool next = t >= share;
-  return load_cluster(window + 4u * uint32_t(next ? t - share : t),
-                      uint32_t(qr.x + (next ? 1 : 0)));
+__device__ __forceinline__ float load_shared(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
+  return v;
 }
 
-// y at CTA-local output p, from its d plane values a[] (kD > 0): all
+// Window position w = q S + r + p of the CTA-local output p (p < T / C <=
+// S, so r + p < 2 S): the CTA that holds it and the address there; a
+// plain shared load where that is this CTA (`rank`), which costs less
+// than the cluster's path.
+__device__ __forceinline__ float window_at(uint32_t window, int2 qr, int p,
+                                           int share, uint32_t rank) {
+  const int t = qr.y + p;
+  const bool next = t >= share;
+  const uint32_t owner = uint32_t(qr.x + (next ? 1 : 0));
+  const uint32_t addr = window + 4u * uint32_t(next ? t - share : t);
+  return owner == rank ? load_shared(addr) : load_cluster(addr, owner);
+}
+
+// y at CTA-local output p from its d plane values a[] (kD > 0): all
 // window reads, then the d terms in offset order, from the first.
 template <int kD>
-__device__ __forceinline__ void store_row(const Roll2dArgs& A, const int2* qr,
-                                          uint32_t window, int64_t out0, int p,
-                                          const float (&a)[kD]) {
+__device__ __forceinline__ float row_sum(const Roll2dArgs& A, const int2* qr,
+                                         uint32_t window, uint32_t rank, int p,
+                                         const float (&a)[kD]) {
   float b[kD];
 #pragma unroll
-  for (int k = 0; k < kD; ++k) b[k] = window_at(window, qr[k], p, A.share);
+  for (int k = 0; k < kD; ++k) b[k] = window_at(window, qr[k], p, A.share, rank);
   float acc = __fmul_rn(a[0], b[0]);
 #pragma unroll
   for (int k = 1; k < kD; ++k) acc = __fadd_rn(acc, __fmul_rn(a[k], b[k]));
-  A.y[out0 + p] = acc;
+  return acc;
 }
 
-// Any other d: one diagonal at a time; plane(k) gives data[k, i].
-template <typename Plane>
-__device__ __forceinline__ void store_row_generic(const Roll2dArgs& A,
-                                                  const int2* qr,
-                                                  uint32_t window, int64_t out0,
-                                                  int p, Plane plane) {
-  float acc = __fmul_rn(plane(0), window_at(window, qr[0], p, A.share));
-  for (int k = 1; k < A.count; ++k) {
-    acc = __fadd_rn(acc, __fmul_rn(plane(k), window_at(window, qr[k], p, A.share)));
-  }
-  A.y[out0 + p] = acc;
-}
+// Block sizes a count takes: up to 1024 threads, 512 at d = 27 (its 54
+// values a thread need more than 64 registers).
+__host__ __device__ constexpr int max_threads(int kD) { return kD == 27 ? 512 : 1024; }
 
-// Block: `consumers` threads (256 or 512, the plan's), plus one producer
-// warp on the ring route. Dynamic shared memory: the window share (S
-// floats, padded to 128 bytes), then the ring (stages x d x consumers
-// floats).
-template <int kD, bool kRing>
-__global__ void __launch_bounds__(kMaxConsumers + 32)
+// One tile of T = rows x 128 outputs per cluster of C CTAs (cluster g =
+// blockIdx.x / C); CTA c computes outputs [c T/C, (c + 1) T/C) of it and
+// holds window positions [c S, (c + 1) S). Dynamic shared memory: the
+// window share, S floats.
+template <int kD>
+__global__ void __launch_bounds__(max_threads(kD))
     roll2d_kernel(const __grid_constant__ Roll2dArgs A) {
   extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ __align__(8) uint64_t bars[1 + 2 * kMaxStages];
+  __shared__ __align__(8) uint64_t bar;
   __shared__ int2 qr[kMaxDiags];
   const int d = kD > 0 ? kD : A.count;
-  const int consumers = int(blockDim.x) - (kRing ? 32 : 0);
+  const int threads = blockDim.x;
+  const int tid = threadIdx.x;
   const int C = A.tile / A.per_cta;
   const uint32_t c = cluster_rank();
   const int64_t first = int64_t(blockIdx.x / C) * A.tile;
   const int64_t out0 = first + int64_t(c) * A.per_cta;  // this CTA's first output
   const int64_t left = A.n - out0;
   const int valid = left <= 0 ? 0 : (left < A.per_cta ? int(left) : A.per_cta);
-  const int chunks = (valid + consumers - 1) / consumers;
   float* window = reinterpret_cast<float*>(smem);
   const uint32_t window_addr = shared_addr(window);
-  float* ring = reinterpret_cast<float*>(
-      smem + ((size_t(A.share) * 4 + 127) / 128) * 128);
-  const uint32_t win_bar = shared_addr(&bars[0]);
-  auto full = [&](int s) { return shared_addr(&bars[1 + s]); };
-  auto empty = [&](int s) { return shared_addr(&bars[1 + kMaxStages + s]); };
+  const uint32_t win_bar = shared_addr(&bar);
 
   // Window positions [c S, (c + 1) S) are x[g0 .. g0 + S). The bulk
   // copy takes x[b0 .. b1), that range within [0, n & ~3) (empty: b0 =
@@ -255,124 +243,93 @@ __global__ void __launch_bounds__(kMaxConsumers + 32)
   int64_t b1 = g1 < n4 ? g1 : n4;
   if (b1 <= b0) b0 = b1 = g0;
 
-  if (threadIdx.x == 0) {
+  if (tid == 0) {
     bar_init(win_bar, 1);
-    if constexpr (kRing) {
-      for (int s = 0; s < A.stages; ++s) {
-        bar_init(full(s), 1);
-        bar_init(empty(s), consumers);
-      }
-    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int k = threadIdx.x; k < d; k += blockDim.x) {
+  for (int k = tid; k < d; k += threads) {
     // w = H + c T/C + off_k + p for output p; H + off_k >= 0.
     const int64_t base = int64_t(A.halo) + int64_t(c) * A.per_cta + A.off[k];
     qr[k] = make_int2(int(base / A.share), int(base % A.share));
   }
   __syncthreads();
-
-  const bool producer = kRing && int(threadIdx.x) >= consumers;
-  if (int(threadIdx.x) == (kRing ? consumers : 0)) {
+  if (tid == 0) {
     const uint32_t bytes = uint32_t(b1 - b0) * 4u;
     bar_expect(win_bar, bytes);
     if (bytes) bulk_copy(window_addr + uint32_t(b0 - g0) * 4u, A.x + b0, bytes, win_bar);
   }
-  if (producer) {
-    cluster_arrive();  // the consumers release the window
-    if (int(threadIdx.x) == consumers) {
-      for (int i = 0; i < chunks; ++i) {
-        const int s = i % A.stages;
-        if (i >= A.stages) bar_wait(empty(s), uint32_t((i / A.stages - 1) & 1));
-        const int len = valid - i * consumers < consumers ? valid - i * consumers : consumers;
-        const uint32_t bytes = uint32_t(len) * 4u;  // 4 divides n, so len
-        bar_expect(full(s), bytes * uint32_t(d));
-        for (int k = 0; k < d; ++k) {
-          bulk_copy(shared_addr(ring + (size_t(s) * d + k) * consumers),
-                    A.data + int64_t(k) * A.n + out0 + int64_t(i) * consumers, bytes,
-                    full(s));
-        }
-      }
-    }
-    __syncwarp();
-    cluster_wait();
-  } else {
-    const int tid = threadIdx.x;
-    auto plane_at = [&](int p, int k) {
-      return __ldg(A.data + int64_t(k) * A.n + out0 + p);
-    };
-    // Loads route: the first output's plane loads go out before the wait
-    // for the window.
-    float a[kD > 0 ? kD : 1];
-    if constexpr (!kRing && kD > 0) {
-      if (tid < valid) {
+  auto plane_at = [&](int p, int k) {
+    return __ldg(A.data + int64_t(k) * A.n + out0 + p);
+  };
+  // The first output's plane loads go out before the wait for the window.
+  float a[kD > 0 ? kD : 1];
+  if constexpr (kD > 0) {
+    if (tid < valid) {
 #pragma unroll
-        for (int k = 0; k < kD; ++k) a[k] = plane_at(tid, k);
-      }
+      for (int k = 0; k < kD; ++k) a[k] = plane_at(tid, k);
     }
-    // Plain stores into the parts of the share the copy does not write.
-    for (int64_t l = tid; l < b0 - g0; l += consumers) {
-      const int64_t g = g0 + l;
-      window[l] = g >= 0 && g < A.n ? A.x[g] : 0.0f;
-    }
-    for (int64_t l = (b1 - g0) + tid; l < A.share; l += consumers) {
-      const int64_t g = g0 + l;
-      window[l] = g >= 0 && g < A.n ? A.x[g] : 0.0f;
-    }
-    bar_wait(win_bar, 0);
+  }
+  // Plain stores into the parts of the share the copy does not write.
+  for (int64_t l = tid; l < b0 - g0; l += threads) {
+    const int64_t x = g0 + l;
+    window[l] = x >= 0 && x < A.n ? A.x[x] : 0.0f;
+  }
+  for (int64_t l = (b1 - g0) + tid; l < A.share; l += threads) {
+    const int64_t x = g0 + l;
+    window[l] = x >= 0 && x < A.n ? A.x[x] : 0.0f;
+  }
+  bar_wait(win_bar, 0);
+  if (C > 1) {
     cluster_arrive();
     cluster_wait();
-    if constexpr (kRing) {
-      for (int i = 0; i < chunks; ++i) {
-        const int s = i % A.stages;
-        bar_wait(full(s), uint32_t((i / A.stages) & 1));
-        const float* stage = ring + size_t(s) * d * consumers + tid;
-        const int p = i * consumers + tid;
-        if (p < valid) {
-          if constexpr (kD > 0) {
+  } else {
+    __syncthreads();  // a cluster of one: the plain stores are this CTA's
+  }
+  if constexpr (kD > 0) {
+    // d = 5: two outputs' plane loads in flight, the next one's issued
+    // before this one's window reads. d = 27 keeps one (a second would
+    // take 79 registers a thread and halve the CTAs an SM holds).
+    constexpr bool kNext = kD <= 8;
+    for (int p = tid; p < valid; p += threads) {
+      float next[kD];
+      if (kNext && p + threads < valid) {
 #pragma unroll
-            for (int k = 0; k < kD; ++k) a[k] = stage[k * consumers];
-            store_row<kD>(A, qr, window_addr, out0, p, a);
-          } else {
-            store_row_generic(A, qr, window_addr, out0, p,
-                              [&](int k) { return stage[k * consumers]; });
-          }
-        }
-        bar_arrive(empty(s));
+        for (int k = 0; k < kD; ++k) next[k] = plane_at(p + threads, k);
       }
-    } else if constexpr (kD > 0) {
-      // d = 5: two outputs' plane loads in flight, the next one's issued
-      // before this one's window reads. d = 27 keeps one (a second would
-      // take 79 registers a thread and halve the CTAs an SM holds).
-      constexpr bool kNext = kD <= 8;
-      for (int p = tid; p < valid; p += consumers) {
-        float next[kD];
-        if (kNext && p + consumers < valid) {
+      A.y[out0 + p] = row_sum<kD>(A, qr, window_addr, c, p, a);
+      if (p + threads < valid) {
 #pragma unroll
-          for (int k = 0; k < kD; ++k) next[k] = plane_at(p + consumers, k);
-        }
-        store_row<kD>(A, qr, window_addr, out0, p, a);
-        if (p + consumers < valid) {
-#pragma unroll
-          for (int k = 0; k < kD; ++k) a[k] = kNext ? next[k] : plane_at(p + consumers, k);
-        }
+        for (int k = 0; k < kD; ++k) a[k] = kNext ? next[k] : plane_at(p + threads, k);
       }
-    } else {
-      for (int p = tid; p < valid; p += consumers) {
-        store_row_generic(A, qr, window_addr, out0, p,
-                          [&](int k) { return plane_at(p, k); });
+    }
+  } else {  // any other d: one diagonal at a time
+    for (int p = tid; p < valid; p += threads) {
+      float acc = __fmul_rn(plane_at(p, 0), window_at(window_addr, qr[0], p, A.share, c));
+      for (int k = 1; k < d; ++k) {
+        acc = __fadd_rn(acc, __fmul_rn(plane_at(p, k),
+                                       window_at(window_addr, qr[k], p, A.share, c)));
       }
+      A.y[out0 + p] = acc;
     }
   }
   // No CTA leaves while a neighbour may still read its window.
-  cluster_arrive();
-  cluster_wait();
+  if (C > 1) {
+    cluster_arrive();
+    cluster_wait();
+  }
 }
 
-template <int kD, bool kRing>
-cudaError_t roll2d_start(const Roll2dArgs& A, int64_t tiles, int cluster,
-                         int consumers, size_t smem, cudaStream_t stream) {
-  auto* kernel = roll2d_kernel<kD, kRing>;
+using Roll2dKernel = void (*)(const Roll2dArgs);
+
+// The kernel for d = count, its attributes set for `smem` bytes and
+// `cluster`, and its launch configuration for `ctas` CTAs of `threads`.
+cudaError_t roll2d_config(int count, int cluster, int threads, size_t smem,
+                          int64_t ctas, cudaStream_t stream,
+                          Roll2dKernel& kernel, cudaLaunchConfig_t& cfg,
+                          cudaLaunchAttribute* attr) {
+  kernel = count == 5    ? roll2d_kernel<5>
+           : count == 27 ? roll2d_kernel<27>
+                         : roll2d_kernel<0>;
   cudaError_t err;
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -383,32 +340,21 @@ cudaError_t roll2d_start(const Roll2dArgs& A, int64_t tiles, int cluster,
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
   }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(tiles * cluster));
-  cfg.blockDim = dim3(consumers + (kRing ? 32 : 0));
+  cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(ctas));
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = static_cast<unsigned>(cluster);
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, A);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return cudaSuccess;
 }
 
-template <bool kRing>
-cudaError_t roll2d_route(const Roll2dArgs& A, int64_t tiles, int cluster,
-                         int consumers, size_t smem, cudaStream_t stream) {
-  switch (A.count) {
-    case 5: return roll2d_start<5, kRing>(A, tiles, cluster, consumers, smem, stream);
-    case 27: return roll2d_start<27, kRing>(A, tiles, cluster, consumers, smem, stream);
-    default: return roll2d_start<0, kRing>(A, tiles, cluster, consumers, smem, stream);
-  }
-}
+size_t roll2d_smem(int share) { return (size_t(share) * 4 + 127) / 128 * 128; }
 
 }  // namespace
 
@@ -429,25 +375,24 @@ int spectra_dia_noshift_f32(const float* data, const float* x, float* y,
 }
 
 // P4 with the plan of ops/dia_variants.py::roll2d_plan: tiles of `tile`
-// outputs (a multiple of 128), `cluster` CTAs a tile, a halo of `halo`
+// outputs (a multiple of 128), one a cluster of `cluster` CTAs of
+// `threads` (256, 512 or 1024; at most 512 at d = 27), a halo of `halo`
 // floats (a multiple of 4, >= every |offset|), `share` window floats a
 // CTA (a multiple of 4, cluster * share >= tile + 2 halo, share >= tile /
-// cluster), `threads` computing threads a CTA (256 or 512), `stages` ring
-// stages of `threads` values a plane (0: the loads route). x must be
-// 16-byte aligned; on the ring route data too, and 4 must divide n.
+// cluster). x must be 16-byte aligned.
 int spectra_dia_roll2d_f32(const float* data, const float* x, float* y,
                            int64_t n, const int64_t* offsets, int count,
                            int tile, int cluster, int halo, int share,
-                           int threads, int stages, void* stream) {
+                           int threads, void* stream) {
   const bool cluster_ok = cluster == 1 || cluster == 2 || cluster == 4 ||
                           cluster == 8 || cluster == 16;
   if (n < 1 || count < 1 || count > kMaxDiags || tile < 128 || tile % 128 ||
       !cluster_ok || cluster > kMaxCluster || tile % (4 * cluster) || halo < 0 ||
       halo % 4 || share < 4 || share % 4 || share < tile / cluster ||
       int64_t(share) * cluster < int64_t(tile) + 2 * int64_t(halo) ||
-      stages < 0 || stages > kMaxStages || (threads != 256 && threads != 512) ||
-      reinterpret_cast<uintptr_t>(x) % 16 ||
-      (stages > 0 && (n % 4 || reinterpret_cast<uintptr_t>(data) % 16))) {
+      (threads != 256 && threads != 512 && threads != 1024) ||
+      threads > max_threads(count == 27 ? 27 : 0) ||
+      reinterpret_cast<uintptr_t>(x) % 16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Roll2dArgs A;
@@ -459,24 +404,40 @@ int spectra_dia_roll2d_f32(const float* data, const float* x, float* y,
   A.per_cta = tile / cluster;
   A.halo = halo;
   A.share = share;
-  A.stages = stages;
   A.count = count;
   for (int k = 0; k < count; ++k) {
     A.off[k] = offsets[k];
     const int64_t a = offsets[k] < 0 ? -offsets[k] : offsets[k];
     if (a > halo) return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = (size_t(share) * 4 + 127) / 128 * 128 +
-                      size_t(stages) * count * threads * sizeof(float);
+  const size_t smem = roll2d_smem(share);
   if (smem > size_t(kMaxSharedBytes) - 1024) {  // 1 KB of static shared memory
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int64_t tiles = (n + tile - 1) / tile;
   if (tiles * cluster > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      stages > 0 ? roll2d_route<true>(A, tiles, cluster, threads, smem, st)
-                 : roll2d_route<false>(A, tiles, cluster, threads, smem, st));
+  Roll2dKernel kernel;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t err = roll2d_config(count, cluster, threads, smem, tiles * cluster,
+                                  static_cast<cudaStream_t>(stream), kernel, cfg, attr);
+  if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, kernel, A);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  return static_cast<int>(err);
+}
+
+// How many clusters of P4's launch with these parameters the card holds
+// at once (cudaOccupancyMaxActiveClusters), into *clusters; the plan
+// (ops/dia_variants.py::card_plan) sizes its grid by it.
+int spectra_dia_roll2d_clusters_f32(int count, int cluster, int threads,
+                                    int share, int* clusters) {
+  Roll2dKernel kernel;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t err = roll2d_config(count, cluster, threads, roll2d_smem(share),
+                                  cluster, nullptr, kernel, cfg, attr);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -47,20 +47,13 @@ MAX_SHARED_BYTES = 227 * 1024
 STATIC_SHARED_BYTES = 1024
 
 #: ``dia_roll2d``: thread-block cluster sizes (above 8 non-portable),
-#: computing threads a CTA, the threads an SM holds at once, ring stages
-#: and the bytes the ring aims at.
+#: threads a CTA (at most 512 at d = 27, whose 54 values a thread need
+#: more than the 64 registers of a 1024-thread block), and what an SM
+#: holds at once.
 CLUSTER_SIZES = (1, 2, 4, 8, 16)
-PORTABLE_CLUSTER = 8
-BLOCK_SIZES = (256, 512)
+BLOCK_SIZES = (256, 512, 1024)
 THREADS_PER_SM = 2048
-MAX_STAGES = 8
-RING_BYTES = 32 * 1024
-
-#: Whether ``dia_roll2d`` streams the data planes by bulk copies through
-#: a ring in shared memory where 4 divides n (else each thread loads its
-#: row's planes, K1's way): the faster route at rows 32 and 256 on an
-#: H100 (PERF.md, ``chip_smoke.py``'s route comparison).
-PLANES_BY_TMA = True
+SM_SHARED_BYTES = 228 * 1024
 
 #: Kernel launches since import (or since a caller reset them to 0).
 LAUNCHES = {"dia_noshift": 0, "dia_roll2d": 0}
@@ -97,11 +90,9 @@ def window_bytes(offsets, rows: int) -> int:
 
 class Roll2dPlan(NamedTuple):
     """The launch of ``dia_roll2d``: ``tiles`` tiles of ``tile`` outputs,
-    each on a cluster of ``cluster`` CTAs that computes ``per_cta``
-    outputs a CTA with ``threads`` threads and holds ``share`` window
-    values a CTA; ``stages`` ring stages of the data planes (0: each
-    thread loads its row's planes); ``shared_bytes`` a CTA, static
-    arrays included."""
+    each on a cluster of ``cluster`` CTAs; a CTA computes ``per_cta``
+    outputs with ``threads`` threads and holds ``share`` window values
+    (``shared_bytes`` of shared memory, static arrays included)."""
 
     tile: int
     tiles: int
@@ -110,7 +101,6 @@ class Roll2dPlan(NamedTuple):
     threads: int
     halo: int
     share: int
-    stages: int
     shared_bytes: int
 
     @property
@@ -118,7 +108,16 @@ class Roll2dPlan(NamedTuple):
         return self.tiles * self.cluster
 
 
-def roll2d_plan(n: int, offsets, rows: int, sms: int, tma_planes=None,
+def held_at_once(plan: Roll2dPlan, sms: int) -> int:
+    """Clusters of ``plan`` that ``sms`` SMs hold at once by threads and
+    shared memory (``THREADS_PER_SM``, ``SM_SHARED_BYTES``):
+    :func:`roll2d_plan`'s model where the card is not asked
+    (:func:`card_plan` asks it)."""
+    ctas = min(THREADS_PER_SM // plan.threads, SM_SHARED_BYTES // (plan.shared_bytes + 1024))
+    return ctas * sms // plan.cluster
+
+
+def roll2d_plan(n: int, offsets, rows: int, sms: int, clusters_at_once=None,
                 cluster=None, threads=None) -> Roll2dPlan:
     """The launch of ``dia_roll2d`` for ``n`` rows, ``offsets`` and
     ``rows`` on a card of ``sms`` SMs.
@@ -128,66 +127,74 @@ def roll2d_plan(n: int, offsets, rows: int, sms: int, tma_planes=None,
     CTA, and each CTA computes its ``tile / cluster`` outputs with
     ``threads`` threads. Of the (cluster, threads) pairs that fit in
     shared memory and give at least as many CTAs as SMs (or as the tiles
-    allow), and of those the portable clusters (up to 8) where there are
-    any (clusters of 16 were slower when they filled the card: PERF.md),
-    the plan takes the fewest threads that still give one thread
-    per output within the ``THREADS_PER_SM`` the SMs hold at once; where
-    n is larger, the most threads that the SMs hold at once (one wave);
-    on a tie the smaller cluster, whose reads stay more in the CTA's own
-    share. The data planes go through a ring of ``stages`` stages when
-    ``tma_planes`` (default: where 4 divides n, if ``PLANES_BY_TMA``).
-    ``cluster``, ``threads`` and ``tma_planes`` override the rule for
-    ``chip_smoke.py``'s comparison of the routes. Raises ``ValueError``
-    when no cluster size fits in ``MAX_SHARED_BYTES``."""
+    allow), the plan takes one whose tiles the card holds at once
+    (``clusters_at_once(plan)``, default :func:`held_at_once`; one wave,
+    so no tile waits for another's): the fewest threads that give one
+    thread per output, else the most threads. Where no pair is held at
+    once, the pair the card holds most threads of. On a tie, the smaller
+    cluster, whose reads stay more in the CTA's own share. ``cluster``
+    and ``threads`` fix a choice (``chip_smoke.py``'s sweep). Raises
+    ``ValueError`` when no cluster size fits in ``MAX_SHARED_BYTES``."""
     if rows < 1:
         raise ValueError("rows must be >= 1")
-    d = len(offsets)
-    if tma_planes is None:
-        tma_planes = PLANES_BY_TMA and n % 4 == 0
-    if tma_planes and n % 4:
-        raise ValueError("the ring route needs 4 to divide n")
+    if clusters_at_once is None:
+        clusters_at_once = lambda p: held_at_once(p, sms)
     tile = rows * LANES
     tiles = -(-n // tile)
     halo = halo_for(offsets)
-
-    def plan(c, t):
-        stage_bytes = d * t * 4
-        stages = max(2, min(MAX_STAGES, RING_BYTES // stage_bytes)) if tma_planes else 0
+    sizes = [t for t in BLOCK_SIZES if t <= (512 if len(offsets) == 27 else 1024)]
+    plans = []
+    clusters = CLUSTER_SIZES if cluster is None else (cluster,)
+    for c in clusters:
         share = max(_round_up(-(-(tile + 2 * halo) // c), 4), 4)
-        shared = _round_up(share * 4, 128) + stages * stage_bytes + STATIC_SHARED_BYTES
-        return Roll2dPlan(tile, tiles, c, tile // c, t, halo, share, stages, shared)
-
-    plans = [plan(c, t)
-             for c in (CLUSTER_SIZES if cluster is None else (cluster,))
-             for t in (BLOCK_SIZES if threads is None else (threads,))]
-    plans = [p for p in plans if p.shared_bytes <= MAX_SHARED_BYTES]
+        shared = _round_up(share * 4, 128) + STATIC_SHARED_BYTES
+        if shared <= MAX_SHARED_BYTES:
+            plans += [Roll2dPlan(tile, tiles, c, tile // c, t, halo, share, shared)
+                      for t in (sizes if threads is None else (threads,))]
     if not plans:
         raise ValueError(
             f"the x window of {window_bytes(offsets, rows)} bytes does not fit "
             f"the {MAX_SHARED_BYTES} bytes of shared memory a CTA may use even "
-            f"in shares of {CLUSTER_SIZES[-1]} (rows={rows}, max|off|={halo})"
+            f"in shares of {clusters[-1]} (rows={rows}, max|off|={halo})"
         )
     wide = min(sms, max(p.ctas for p in plans))
     plans = [p for p in plans if p.ctas >= wide]
-    portable = [p for p in plans if p.cluster <= PORTABLE_CLUSTER]
-    plans = portable or plans
     total = lambda p: p.ctas * p.threads
-    at_once = THREADS_PER_SM * sms
-    enough = [p for p in plans if n <= total(p) <= at_once]
+    held = {p: clusters_at_once(p) for p in plans}
+    one_wave = [p for p in plans if p.tiles <= held[p]]
+    enough = [p for p in one_wave if total(p) >= n]
     if enough:
         return min(enough, key=lambda p: (total(p), p.cluster))
-    held = [p for p in plans if total(p) <= at_once]
-    if held:
-        return min(held, key=lambda p: (-total(p), p.cluster))
-    return min(plans, key=lambda p: (total(p), p.cluster))
+    if one_wave:
+        return min(one_wave, key=lambda p: (-total(p), p.cluster))
+    return min(plans, key=lambda p: (-held[p] * p.cluster * p.threads, p.cluster, p.threads))
 
 
 @functools.lru_cache(maxsize=None)
 def card_plan(n: int, offsets: tuple, rows: int, index: int) -> Roll2dPlan:
     """:func:`roll2d_plan` on CUDA device ``index``, computed once per
-    shape."""
+    shape, with the clusters the card holds at once asked of the card."""
     sms = torch.cuda.get_device_properties(index).multi_processor_count
-    return roll2d_plan(n, offsets, rows, sms)
+    return roll2d_plan(n, offsets, rows, sms,
+                       clusters_at_once=lambda p: card_clusters(p, len(offsets), index))
+
+
+@functools.lru_cache(maxsize=None)
+def card_clusters(plan: Roll2dPlan, d: int, index: int) -> int:
+    """Clusters of ``plan`` at ``d`` diagonals that CUDA device ``index``
+    holds at once (``cudaOccupancyMaxActiveClusters``)."""
+    fn = _KERNELS.get("clusters")
+    if fn is None:
+        fn = _build.load("dia_variants").spectra_dia_roll2d_clusters_f32
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        _KERNELS["clusters"] = fn
+    out = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = fn(d, plan.cluster, plan.threads, plan.share, ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"dia_roll2d occupancy query failed: CUDA error {err}")
+    return out.value
 
 
 def dia_noshift_plain(data, x):
@@ -303,15 +310,15 @@ def dia_roll2d(data, offsets, x, rows: int = 256):
 
 def roll2d_launch(data, offsets, x, plan: Roll2dPlan):
     """One launch of the ``dia_roll2d`` kernel on CUDA tensors with
-    ``plan`` (``chip_smoke.py`` times both plane routes through it)."""
-    if x.data_ptr() % 16 or (plan.stages and data.data_ptr() % 16):
-        raise ValueError("x (and data, on the ring route) must be 16-byte aligned")
+    ``plan`` (``chip_smoke.py`` times other plans through it)."""
+    if x.data_ptr() % 16:
+        raise ValueError("x must be 16-byte aligned")
     p, i = ctypes.c_void_p, ctypes.c_int
     offs = (ctypes.c_int64 * len(offsets))(*offsets)
     return _launch(
-        "dia_roll2d", [p, p, p, ctypes.c_int64, p, i, i, i, i, i, i, i, p], x,
+        "dia_roll2d", [p, p, p, ctypes.c_int64, p, i, i, i, i, i, i, p], x,
         data.data_ptr(), x.data_ptr(), x.shape[0], offs, len(offsets),
-        plan.tile, plan.cluster, plan.halo, plan.share, plan.threads, plan.stages,
+        plan.tile, plan.cluster, plan.halo, plan.share, plan.threads,
     )
 
 

@@ -144,7 +144,7 @@ def test_window_rule_and_input_checks():
     assert dv.halo_for((-1001, 0, 3)) == 1004
     assert dv.window_bytes(offsets, 256) == (256 * 128 + 2000) * 4
     assert dv.roll2d_plan(10**6, offsets, 512, 132).shared_bytes <= dv.MAX_SHARED_BYTES
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError):  # a share above 227 KB even in clusters of 16
         dv.roll2d_plan(4096, (-600_000, 0, 600_000), 256, 132)
     data = torch.ones((5, 64), dtype=torch.float64)
     with pytest.raises(TypeError):
@@ -187,28 +187,39 @@ def test_roll2d_plan(label, n, offsets, rows):
     assert plan.tile == rows * 128
     assert (plan.tiles - 1) * plan.tile < n <= plan.tiles * plan.tile
     assert plan.cluster in dv.CLUSTER_SIZES and plan.threads in dv.BLOCK_SIZES
+    assert plan.threads <= (512 if len(offsets) == 27 else 1024)
     assert plan.per_cta * plan.cluster == plan.tile and plan.per_cta % 4 == 0
     maxoff = max(abs(o) for o in offsets)
     assert maxoff <= plan.halo < maxoff + 4 and plan.halo % 4 == 0
     assert plan.share % 4 == 0 and plan.share >= plan.per_cta
     assert plan.share * plan.cluster >= plan.tile + 2 * plan.halo
     assert plan.shared_bytes <= dv.MAX_SHARED_BYTES
-    stage_bytes = len(offsets) * plan.threads * 4
-    assert plan.stages == (0 if n % 4 or not dv.PLANES_BY_TMA
-                           else max(2, min(8, dv.RING_BYTES // stage_bytes)))
     # The CTAs reach the SM count wherever the tiles allow (every cluster
-    # size fits at these shapes), in one wave unless the smallest launch
-    # already takes more.
+    # size fits at these shapes), all held at once where any launch is.
     assert plan.ctas >= min(SMS, plan.tiles * dv.CLUSTER_SIZES[-1])
-    total = plan.ctas * plan.threads
-    at_once = dv.THREADS_PER_SM * SMS
-    assert total <= at_once or (plan.cluster, plan.threads) == (1, dv.BLOCK_SIZES[0])
-    # One thread per output where portable clusters give that many and
-    # the card holds them at once.
-    if plan.tiles * dv.PORTABLE_CLUSTER * dv.BLOCK_SIZES[-1] >= n and n <= at_once:
-        assert total >= n
-    if plan.ctas * dv.PORTABLE_CLUSTER // plan.cluster >= SMS:
-        assert plan.cluster <= dv.PORTABLE_CLUSTER
+    others = [dv.roll2d_plan(n, offsets, rows, SMS, cluster=c, threads=t)
+              for c in dv.CLUSTER_SIZES for t in dv.BLOCK_SIZES
+              if t <= (512 if len(offsets) == 27 else 1024)
+              and (rows * 128 + 2 * plan.halo) // c * 4 < dv.MAX_SHARED_BYTES - 2048]
+    one_wave = lambda p: p.tiles <= dv.held_at_once(p, SMS)
+    wide = [p for p in others if p.ctas >= min(SMS, plan.tiles * dv.CLUSTER_SIZES[-1])]
+    if any(one_wave(p) for p in wide):
+        assert one_wave(plan)
+        # One thread per output where a launch held at once gives that.
+        if any(p.ctas * p.threads >= n for p in wide if one_wave(p)):
+            assert plan.ctas * plan.threads >= n
+
+
+@pytest.mark.parametrize("rows", [32, 256])
+def test_roll2d_plan_takes_one_wave_by_the_cards_count(rows):
+    """Where the card holds fewer clusters at once than threads alone
+    allow (a model of one 1024-thread CTA an SM), the plan takes a launch
+    whose tiles all run at once."""
+    offsets = (-1000, -1, 0, 1, 1000)
+    held = lambda p: (1 if p.threads == 1024 else 4) * SMS // p.cluster
+    plan = dv.roll2d_plan(10**6, offsets, rows, SMS, clusters_at_once=held)
+    assert plan.tiles <= held(plan) and plan.ctas >= SMS
+    assert plan.threads < 1024 or plan.tiles * plan.cluster <= SMS
 
 
 def _emulate_kernel(data, offsets, x, plan):
