@@ -55,7 +55,8 @@
 //     window reads. The other way, a producer warp streaming the planes
 //     by bulk copies through a ring of stages in shared memory (legal
 //     only where 4 divides n: plane k starts at k n floats), was slower
-//     at rows 32 and 256 on an H100 (PERF.md, PR 6), and is gone.
+//     at rows 32 and 256 on an H100 when both were timed in one run
+//     (PERF.md), and is gone.
 //   * d = 5 and d = 27 (the shapes the chip run times) are unrolled;
 //     any other d runs one diagonal at a time through the same code.
 // What still holds it (PERF.md): the window's round trip, the cluster
@@ -82,7 +83,6 @@ constexpr int kMaxDiags = 64;
 constexpr int kMaxSharedBytes = 227 * 1024;
 
 // roll2d
-constexpr int kMaxCluster = 16;
 constexpr uint32_t kCopyPiece = 1u << 15;  // bytes per bulk copy instruction
 
 struct Roll2dArgs {
@@ -387,7 +387,7 @@ int spectra_dia_roll2d_f32(const float* data, const float* x, float* y,
   const bool cluster_ok = cluster == 1 || cluster == 2 || cluster == 4 ||
                           cluster == 8 || cluster == 16;
   if (n < 1 || count < 1 || count > kMaxDiags || tile < 128 || tile % 128 ||
-      !cluster_ok || cluster > kMaxCluster || tile % (4 * cluster) || halo < 0 ||
+      !cluster_ok || halo < 0 ||
       halo % 4 || share < 4 || share % 4 || share < tile / cluster ||
       int64_t(share) * cluster < int64_t(tile) + 2 * int64_t(halo) ||
       (threads != 256 && threads != 512 && threads != 1024) ||

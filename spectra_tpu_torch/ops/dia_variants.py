@@ -117,46 +117,48 @@ def held_at_once(plan: Roll2dPlan, sms: int) -> int:
     return ctas * sms // plan.cluster
 
 
-def roll2d_plan(n: int, offsets, rows: int, sms: int, clusters_at_once=None,
-                cluster=None, threads=None) -> Roll2dPlan:
-    """The launch of ``dia_roll2d`` for ``n`` rows, ``offsets`` and
-    ``rows`` on a card of ``sms`` SMs.
-
-    A tile of ``rows`` x 128 outputs reads its x window once; the window
-    is split in ``cluster`` equal shares of a multiple of 4 values, one a
-    CTA, and each CTA computes its ``tile / cluster`` outputs with
-    ``threads`` threads. Of the (cluster, threads) pairs that fit in
-    shared memory and give at least as many CTAs as SMs (or as the tiles
-    allow), the plan takes one whose tiles the card holds at once
-    (``clusters_at_once(plan)``, default :func:`held_at_once`; one wave,
-    so no tile waits for another's): the fewest threads that give one
-    thread per output, else the most threads. Where no pair is held at
-    once, the pair the card holds most threads of. On a tie, the smaller
-    cluster, whose reads stay more in the CTA's own share. ``cluster``
-    and ``threads`` fix a choice (``chip_smoke.py``'s sweep). Raises
+def roll2d_candidates(n: int, offsets, rows: int) -> list:
+    """Every launch of ``dia_roll2d`` for ``n`` rows, ``offsets`` and
+    ``rows`` whose CTAs fit in shared memory: tiles of ``rows`` x 128
+    outputs, each window split in ``cluster`` equal shares of a multiple
+    of 4 values, one a CTA, for each cluster and block size. Raises
     ``ValueError`` when no cluster size fits in ``MAX_SHARED_BYTES``."""
     if rows < 1:
         raise ValueError("rows must be >= 1")
-    if clusters_at_once is None:
-        clusters_at_once = lambda p: held_at_once(p, sms)
     tile = rows * LANES
     tiles = -(-n // tile)
     halo = halo_for(offsets)
     sizes = [t for t in BLOCK_SIZES if t <= (512 if len(offsets) == 27 else 1024)]
     plans = []
-    clusters = CLUSTER_SIZES if cluster is None else (cluster,)
-    for c in clusters:
+    for c in CLUSTER_SIZES:
         share = max(_round_up(-(-(tile + 2 * halo) // c), 4), 4)
         shared = _round_up(share * 4, 128) + STATIC_SHARED_BYTES
         if shared <= MAX_SHARED_BYTES:
             plans += [Roll2dPlan(tile, tiles, c, tile // c, t, halo, share, shared)
-                      for t in (sizes if threads is None else (threads,))]
+                      for t in sizes]
     if not plans:
         raise ValueError(
             f"the x window of {window_bytes(offsets, rows)} bytes does not fit "
             f"the {MAX_SHARED_BYTES} bytes of shared memory a CTA may use even "
-            f"in shares of {clusters[-1]} (rows={rows}, max|off|={halo})"
+            f"in shares of {CLUSTER_SIZES[-1]} (rows={rows}, max|off|={halo})"
         )
+    return plans
+
+
+def roll2d_plan(n: int, offsets, rows: int, sms: int, clusters_at_once=None) -> Roll2dPlan:
+    """The launch of ``dia_roll2d`` for ``n`` rows, ``offsets`` and
+    ``rows`` on a card of ``sms`` SMs.
+
+    Of :func:`roll2d_candidates` that give at least as many CTAs as SMs
+    (or as the tiles allow), the plan takes one whose tiles the card holds
+    at once (``clusters_at_once(plan)``, default :func:`held_at_once`;
+    one wave, so no tile waits for another's): the fewest threads that
+    give one thread per output, else the most threads. Where none is held
+    at once, the one the card holds most threads of. On a tie, the smaller
+    cluster, whose reads stay more in the CTA's own share."""
+    if clusters_at_once is None:
+        clusters_at_once = lambda p: held_at_once(p, sms)
+    plans = roll2d_candidates(n, offsets, rows)
     wide = min(sms, max(p.ctas for p in plans))
     plans = [p for p in plans if p.ctas >= wide]
     total = lambda p: p.ctas * p.threads
@@ -304,15 +306,9 @@ def dia_roll2d(data, offsets, x, rows: int = 256):
         raise ValueError("rows must be >= 1")
     if x.device.type == "cpu":
         return dia_roll2d_plain(data, offsets, x, rows)
-    return roll2d_launch(data, offsets, x, card_plan(x.shape[0], offsets, rows,
-                                                     x.device.index))
-
-
-def roll2d_launch(data, offsets, x, plan: Roll2dPlan):
-    """One launch of the ``dia_roll2d`` kernel on CUDA tensors with
-    ``plan`` (``chip_smoke.py`` times other plans through it)."""
     if x.data_ptr() % 16:
         raise ValueError("x must be 16-byte aligned")
+    plan = card_plan(x.shape[0], offsets, rows, x.device.index)
     p, i = ctypes.c_void_p, ctypes.c_int
     offs = (ctypes.c_int64 * len(offsets))(*offsets)
     return _launch(

@@ -197,10 +197,8 @@ def test_roll2d_plan(label, n, offsets, rows):
     # The CTAs reach the SM count wherever the tiles allow (every cluster
     # size fits at these shapes), all held at once where any launch is.
     assert plan.ctas >= min(SMS, plan.tiles * dv.CLUSTER_SIZES[-1])
-    others = [dv.roll2d_plan(n, offsets, rows, SMS, cluster=c, threads=t)
-              for c in dv.CLUSTER_SIZES for t in dv.BLOCK_SIZES
-              if t <= (512 if len(offsets) == 27 else 1024)
-              and (rows * 128 + 2 * plan.halo) // c * 4 < dv.MAX_SHARED_BYTES - 2048]
+    others = dv.roll2d_candidates(n, offsets, rows)
+    assert plan in others
     one_wave = lambda p: p.tiles <= dv.held_at_once(p, SMS)
     wide = [p for p in others if p.ctas >= min(SMS, plan.tiles * dv.CLUSTER_SIZES[-1])]
     if any(one_wave(p) for p in wide):
