@@ -46,6 +46,23 @@ Phases, each printing JSON lines and its wall time:
     inner solve, k=10 nearest sigma=0 of the 1M-node 2-D Laplacian, as
     ``bench.py`` runs it (selective re-orthogonalization, restart chunk
     20) and with full re-orthogonalization;
+11b. config #1 (``bench.py:189-227``): the 3 largest in magnitude of a
+    dense 1000x1000 symmetric matrix, on both dense drivers (the native
+    Krylov-Schur driver on the host, built from
+    ``spectra_tpu_torch/csrc/dense_eigs.cpp``, and the IRLM on the card),
+    timed as ``bench.py`` times it;
+11c. the dense shift-solve: the Bunch-Kaufman factorization of config
+    #1's matrix at sigma=0.5 on the card, its solve, and
+    ``SymEigsShiftSolver`` for the 3 eigenvalues nearest sigma;
+11d. the five generalized modes (``GEigsMode``) once each, on dense
+    matrices at n=1000 built as ``tests/test_sym_geigs.py`` builds them,
+    and on config #5a's sparse pair at g=64;
+11e. config #5a as ``scripts/tpu_generalized_1m.py`` runs it at g=1000:
+    the 10 smallest of ``A x = lambda B x`` (2-D Laplacian, FEM mass
+    matrix, n = 10^6) by generalized shift-invert with the multigrid
+    inner solve and the stepped driver, against the analytic values,
+    with K1's launches (B's SpMVs and every level) counted, and a
+    profile of a few of its inner solves;
 12. the north star as ``scripts/tpu_northstar_100m.py:158-174`` runs
     it: shift-invert with the multigrid inner solve, the stepped driver
     and ``compute_locked`` for the 20 smallest eigenvalues, counted with
@@ -56,7 +73,7 @@ Phases, each printing JSON lines and its wall time:
 13. a ``kernels`` line with each kernel's numbers;
 14. the last line, ``{"ok": true, "device": {...}}``.
 
-Each path (the probes, config #2, config #3, the north star) sets the
+Each path (the probes, config #2, config #3, config #5a, the north star) sets the
 launch counters to 0 just before it and reads them just after. Any
 failed check raises, so the script exits non-zero and prints no ``ok``
 line. Without a CUDA device it exits with code 2 before any phase. Only
@@ -331,7 +348,7 @@ def phase_environment(torch):
     emit(
         phase="environment", nvidia_smi=smi, device=name,
         count=torch.cuda.device_count(), torch=torch.__version__,
-        cuda=torch.version.cuda, kernels=_build.sources(),
+        cuda=torch.version.cuda, sources=_build.sources(),
         build_s=build_s,
     )
     return name, smi
@@ -1224,22 +1241,334 @@ def run_config3(torch, stt, dmod, dsmod, pmg, pf):
     return runs["selective_chunk20"][1], runs["full"][1]
 
 
-def check_levels(torch, dmod, pf, mg, path):
+def check_levels(torch, dmod, pf, mg, path, extra=()):
     """K1 bitwise against its plain version on each built DIA level of a
-    path's hierarchy (``mg.ops``), after the path's counted run: the
-    launches at the path's own shapes and data. Any difference raises."""
-    for lv, m in enumerate(mg.ops):
+    path's hierarchy (``mg.ops``) and on the path's ``extra`` (case,
+    DiaMatrix) pairs, after the path's counted run: the launches at the
+    path's own shapes and data. Any difference raises."""
+    cases = [(f"{path}_mg_level{lv}", m) for lv, m in enumerate(mg.ops)]
+    for case, m in [*cases, *((f"{path}_{c}", m) for c, m in extra)]:
         if type(m) is not pf.DiaMatrix:
             continue
         x = torch.randn(m.n_cols, dtype=m.data.dtype, device="cuda")
         y, ref = m.matvec(x), dmod.dia_spmv_plain(m.data, m.offsets, x, m.n_cols)
         bitwise = bool(torch.equal(y, ref))
-        emit(phase="kernel_vs_plain", kernel="dia_spmv", case=f"{path}_mg_level{lv}",
+        emit(phase="kernel_vs_plain", kernel="dia_spmv", case=case,
              dtype=str(m.data.dtype).split(".")[1], d=len(m.offsets), n=m.n_rows,
              n_cols=m.n_cols, config=dmod.card_launch(m.n_rows, 1, 0),
              max_abs_err=float((y - ref).abs().max()), bitwise_equal=bitwise, ok=bitwise)
         if not bitwise:
-            raise RuntimeError(f"K1 is not bitwise its plain version on {path} level {lv}")
+            raise RuntimeError(f"K1 is not bitwise its plain version on {case}")
+
+
+def dense_matrix_config1(n=1000):
+    """``bench.py:200-203``: the README example's matrix."""
+    rng = np.random.default_rng(123)
+    A = rng.uniform(size=(n, n)) - 0.5
+    return A + A.T
+
+
+def run_config1(torch, stt):
+    """Config #1 as ``bench.py:189-227`` runs it: k=3 largest in
+    magnitude, ncv=6, tol 1e-10, v0 ``SimpleRandom(0)``, on the dense
+    drivers ``auto`` (which routes this problem to the native driver on
+    the host) and ``torch`` (the IRLM on the card); each wall is the
+    minimum of 3 timed solves after a warm-up. Each run must converge
+    3/3 within 1e-9 of ``numpy.linalg.eigh``, with ``||AU - U Lambda||_inf
+    <= 1e-9``, and no native solve may fall back."""
+    import os
+
+    from spectra_tpu_torch.solvers import _native_dense
+    from spectra_tpu_torch.util.rng import SimpleRandom
+
+    n, k, m = 1000, 3, 6
+    A = dense_matrix_config1(n)
+    v0 = SimpleRandom(0).random_vec(n)
+    w = np.linalg.eigvalsh(A)
+    want = np.sort(w[np.argsort(-np.abs(w))[:k]])
+    _native_dense.FALLBACKS = 0
+    prev = os.environ.get("SPECTRA_TPU_DENSE_DRIVER")
+    walls = {}
+    try:
+        for driver in ("auto", "torch"):
+            os.environ["SPECTRA_TPU_DENSE_DRIVER"] = driver
+            op = stt.DenseSymMatProd.create(A)  # on the card
+            e = stt.SymEigsSolver(op, nev=k, ncv=m)
+            native = _native_dense.eligible(e)
+            e.init(v0)
+            e.compute(stt.SortRule.LargestMagn, maxit=1000, tol=1e-10)
+            times = []
+            for _ in range(3):
+                e.init(v0)
+                t0 = time.perf_counter()
+                nconv = e.compute(stt.SortRule.LargestMagn, maxit=1000, tol=1e-10)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            vals = e.eigenvalues()
+            U = e.eigenvectors().cpu().numpy()
+            resid = float(np.abs(A @ U - U * vals[None, :]).max())
+            err = float(np.abs(np.sort(vals) - want).max()) if len(vals) == k else None
+            walls[driver] = min(times)
+            emit(phase="config1_dense", driver=driver, routed_native=native, n=n, k=k,
+                 ncv=m, nconv=nconv, info=e.info().name, restarts=e.num_iterations(),
+                 operations=e.num_operations(), wall_s=min(times), walls_s=times,
+                 max_err_vs_eigh=err, residual_inf=resid,
+                 vectors_device=str(e.eigenvectors().device))
+            if native != (driver == "auto"):
+                raise RuntimeError(f"config #1 ({driver}) took the wrong driver")
+            if nconv != k or e.info() != stt.CompInfo.Successful or err > 1e-9 or resid > 1e-9:
+                raise RuntimeError(f"config #1 ({driver}) did not reach eigh's values")
+    finally:
+        if prev is None:
+            os.environ.pop("SPECTRA_TPU_DENSE_DRIVER", None)
+        else:
+            os.environ["SPECTRA_TPU_DENSE_DRIVER"] = prev
+    emit(phase="config1_dense_fallbacks", fallbacks=_native_dense.FALLBACKS,
+         native_over_torch=walls["auto"] / walls["torch"])
+    if _native_dense.FALLBACKS != 0:
+        raise RuntimeError("a native dense solve fell back to the IRLM")
+
+
+def run_dense_shift_invert(torch, stt):
+    """``DenseSymShiftSolve`` on config #1's matrix at sigma=0.5: the
+    Bunch-Kaufman factorization on the card (cold, then again), the
+    relative residual of one solve, and ``SymEigsShiftSolver`` for the 3
+    eigenvalues nearest sigma, within 1e-9 of ``eigh``."""
+    n, sigma = 1000, 0.5
+    A = dense_matrix_config1(n)
+    shift = stt.DenseSymShiftSolve.create(A)
+    factor_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        op = shift.set_shift(sigma)
+        torch.cuda.synchronize()
+        factor_s.append(time.perf_counter() - t0)
+    b = torch.from_numpy(np.random.default_rng(5).normal(size=n)).to("cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = op.perform_op(b)
+    torch.cuda.synchronize()
+    solve_ms = (time.perf_counter() - t0) * 1e3
+    Ad = torch.from_numpy(A).to("cuda")
+    r = torch.linalg.vector_norm(Ad @ x - sigma * x - b)
+    rel = float(r / torch.linalg.vector_norm(b))
+    # the solve's backward error, |r| / (|A - sigma I| |x| + |b|), in the
+    # 2-norm with |A - sigma I| <= its largest absolute row sum
+    shifted_inf = float((Ad - sigma * torch.eye(n, dtype=Ad.dtype, device="cuda"))
+                        .abs().sum(dim=1).max())
+    backward = float(r / (shifted_inf * torch.linalg.vector_norm(x)
+                          + torch.linalg.vector_norm(b)))
+    w = np.linalg.eigvalsh(A)
+    want = np.sort(w[np.argsort(np.abs(w - sigma))[:3]])
+    t0 = time.perf_counter()
+    e = stt.SymEigsShiftSolver.from_factored(op, 3, 6, sigma)
+    e.init()
+    nconv = e.compute(stt.SortRule.LargestMagn, maxit=1000, tol=1e-10)
+    torch.cuda.synchronize()
+    eig_s = time.perf_counter() - t0
+    vals = e.eigenvalues()
+    err = float(np.abs(np.sort(vals) - want).max()) if len(vals) == 3 else None
+    emit(phase="dense_shift_invert", n=n, sigma=sigma, factorize_s=factor_s,
+         pivots_2x2=int(op.factors.is2x2.sum()), solve_ms=solve_ms,
+         rel_residual=rel, backward_error=backward, nconv=nconv, info=e.info().name,
+         restarts=e.num_iterations(), operations=e.num_operations(), solve_s=eig_s,
+         max_err_vs_eigh=err, factors_device=str(op.factors.L.device))
+    if backward > 1e-14:
+        raise RuntimeError(f"the BKLDLT solve's backward error is {backward}")
+    if nconv != 3 or e.info() != stt.CompInfo.Successful or err > 1e-9:
+        raise RuntimeError("dense shift-invert did not reach eigh's values")
+
+
+def config5a_pair(g):
+    """``scripts/tpu_generalized_1m.py::pair``: the 2-D 5-point Laplacian
+    and the FEM mass matrix ``kron(I, tridiag(1/6, 2/3, 1/6))``."""
+    import scipy.sparse as sps
+
+    m1 = sps.diags([1.0 / 6, 2.0 / 3, 1.0 / 6], [-1, 0, 1], shape=(g, g))
+    return laplacian_2d(g), sps.kron(sps.eye(g), m1).tocsr()
+
+
+def config5a_analytic(g, k=10):
+    """The k smallest of config #5a's pencil: ``(lambda_a + lambda_b) /
+    mu_b`` with ``theta_i = i pi / (g + 1)``, ``lambda_i = 2 - 2 cos
+    theta_i``, ``mu_i = (2 + cos theta_i) / 3``; b indexes the inner
+    (fast) axis, on which B acts."""
+    theta = np.arange(1, g + 1) * np.pi / (g + 1)
+    lam, mu = 2.0 - 2.0 * np.cos(theta), (2.0 + np.cos(theta)) / 3.0
+    return np.sort(((lam[:, None] + lam[None, :]) / mu[None, :]).ravel())[:k]
+
+
+def geigs_check(A, B, e, k, label, storage, wall):
+    """One generalized run's check: nconv and ``||AU - BU Lambda||_inf
+    <= 1e-9`` (BASELINE.md:23)."""
+    import scipy.sparse as sps
+
+    vals = e.eigenvalues()
+    U = e.eigenvectors().cpu().numpy()
+    R = A @ U - (B @ U) * vals[None, :]
+    resid = float(np.abs(R).max()) if len(vals) else None
+    emit(phase="generalized_modes", mode=label, storage=storage, n=A.shape[0],
+         nconv=len(vals), info=e.info().name, restarts=e.num_iterations(),
+         operations=e.num_operations(), residual_inf=resid, wall_s=wall,
+         sparse=bool(sps.issparse(A)))
+    if len(vals) != k or e.info().name != "Successful" or resid > 1e-9:
+        raise RuntimeError(f"generalized mode {label} ({storage}) failed: residual {resid}")
+
+
+def run_generalized_modes(torch, stt):
+    """Each of the five ``GEigsMode``s once on dense storage at n=1000
+    (the matrices of ``tests/test_sym_geigs.py``: ``_rand_sym`` and
+    ``_spd``, Buckling's (K, K_G)) and once on config #5a's sparse pair at
+    g=64 (``SparseCholesky``, ``SparseRegularInverse`` and the host
+    ``splu`` of ``SymShiftInvert``). Each must converge with
+    ``||AU - BU Lambda||_inf <= 1e-9``."""
+    M = stt.GEigsMode
+    LA, LM = stt.SortRule.LargestAlge, stt.SortRule.LargestMagn
+
+    def rand_sym(n, seed=123):
+        rng = np.random.RandomState(seed)
+        A = rng.uniform(size=(n, n)) - 0.5
+        return A + A.T
+
+    def spd(n, seed=42):
+        rng = np.random.RandomState(seed)
+        Mm = rng.uniform(size=(n, n)) - 0.5
+        B = (Mm + Mm.T) * 0.1
+        np.fill_diagonal(B, np.abs(B).sum(axis=1) + 1.0)
+        return B
+
+    def run(label, storage, A, B, make, rule, k):
+        t0 = time.perf_counter()
+        e = make()
+        e.init()
+        e.compute(rule, maxit=1000, tol=1e-10)
+        torch.cuda.synchronize()
+        geigs_check(A, B, e, k, label, storage, time.perf_counter() - t0)
+
+    n = 1000
+    A, B = rand_sym(n), spd(n)
+    run("Cholesky", "dense", A, B, lambda: stt.SymGEigsSolver(
+        stt.DenseSymMatProd.create(A), stt.DenseCholesky.create(B), 5, 20), LA, 5)
+    run("ShiftInvert", "dense", A, B, lambda: stt.SymGEigsShiftSolver(
+        stt.SymShiftInvert.create(A, B), stt.DenseSymMatProd.create(B), 4, 16, 0.3),
+        LM, 4)
+    K, KG = spd(n, seed=5), rand_sym(n, seed=6)
+    run("Buckling", "dense", K, KG, lambda: stt.SymGEigsShiftSolver(
+        stt.SymShiftInvert.create(K, KG), stt.DenseSymMatProd.create(K), 4, 16, 1.0,
+        M.Buckling), LM, 4)
+    A9, B10 = rand_sym(n, seed=9), spd(n, seed=10)
+    run("Cayley", "dense", A9, B10, lambda: stt.SymGEigsShiftSolver(
+        stt.SymShiftInvert.create(A9, B10), stt.DenseSymMatProd.create(B10), 4, 16,
+        0.5, M.Cayley), LM, 4)
+
+    As, Bs = config5a_pair(64)
+    run("Cholesky", "sparse", As, Bs, lambda: stt.SymGEigsSolver(
+        stt.SparseSymMatProd.from_full(As), stt.SparseCholesky.create(Bs), 5, 20), LA, 5)
+    run("RegularInverse", "sparse", As, Bs, lambda: stt.SymGEigsSolver(
+        stt.SparseSymMatProd.from_full(As), stt.SparseRegularInverse.create(Bs), 5, 20,
+        M.RegularInverse), LA, 5)
+    run("ShiftInvert", "sparse", As, Bs, lambda: stt.SymGEigsShiftSolver(
+        stt.SymShiftInvert.create(As, Bs), stt.SparseSymMatProd.from_full(Bs), 4, 16,
+        0.0), LM, 4)
+    run("Buckling", "sparse", As, Bs, lambda: stt.SymGEigsShiftSolver(
+        stt.SymShiftInvert.create(As, Bs), stt.SparseSymMatProd.from_full(As), 4, 16,
+        0.05, M.Buckling), LM, 4)
+    run("Cayley", "sparse", As, Bs, lambda: stt.SymGEigsShiftSolver(
+        stt.SymShiftInvert.create(As, Bs), stt.SparseSymMatProd.from_full(Bs), 4, 16,
+        0.05, M.Cayley), LM, 4)
+
+
+class CountingOp:
+    """``op`` with a count of its ``perform_op`` calls: the SpMVs of
+    config #5a's B, each one K1 launch (a vector or a block)."""
+
+    def __init__(self, op):
+        self.op = op
+        self.calls = 0
+
+    dtype = property(lambda self: self.op.dtype)
+    device = property(lambda self: self.op.device)
+
+    def rows(self):
+        return self.op.rows()
+
+    def cols(self):
+        return self.op.cols()
+
+    def perform_op(self, x):
+        self.calls += 1
+        return self.op.perform_op(x)
+
+
+def run_config5a(torch, stt, dmod, dsmod, pmg, pf):
+    """Config #5a as ``scripts/tpu_generalized_1m.py:62-69`` runs it at
+    g=1000: ``SymShiftInvert(A, B, method="mg").set_shift(0)``,
+    ``SymGEigsShiftSolver.from_factored(op, bop, 10, 30, 0)``, the stepped
+    driver, ``compute(LargestMagn, maxit=50, tol=1e-10)`` from
+    ``SimpleRandom(0)``. B (d=3) and every multigrid level run on K1; its
+    launches must equal B's SpMVs (counted by :class:`CountingOp` around
+    B's operator) plus what the V-cycles and inner solves imply. Checks
+    10/10, every value within a relative 1e-9 of the analytic ones, and
+    ``||AU - BU Lambda||_inf / ||A||_inf <= 1e-9``. Returns the operator
+    and K1's launches."""
+    from spectra_tpu_torch.util.rng import SimpleRandom
+
+    g = G_FULL
+    A, B = config5a_pair(g)
+    n = A.shape[0]
+    v0 = SimpleRandom(0).random_vec(n)
+    torch.cuda.synchronize()
+    dmod.LAUNCHES = dsmod.LAUNCHES = 0
+    pmg.CYCLES = pmg.SOLVES = 0
+    bop = CountingOp(stt.SparseSymMatProd.from_full(B))
+    t0 = time.perf_counter()
+    op = stt.SymShiftInvert.create(A, B, method="mg").set_shift(0.0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_cycles, build_solves = pmg.CYCLES, pmg.SOLVES
+    t0 = time.perf_counter()
+    eigs = stt.SymGEigsShiftSolver.from_factored(op, bop, 10, 30, 0.0)
+    eigs.set_matvec_granularity(True)
+    eigs.init(v0)
+    nconv = eigs.compute(stt.SortRule.LargestMagn, maxit=50, tol=1e-10)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    k1, k2 = dmod.LAUNCHES, dsmod.LAUNCHES
+    cycles, solves = pmg.CYCLES, pmg.SOLVES
+    b_spmvs = bop.calls
+    expected_k1 = b_spmvs + expected_launches(op.mg, pf.DiaMatrix, cycles, solves)
+    vals = np.sort(eigs.eigenvalues())
+    want = config5a_analytic(g)
+    rel_err = float(np.max(np.abs(vals - want) / want)) if len(vals) == 10 else None
+    U = eigs.eigenvectors().cpu().numpy()
+    vals_u = eigs.eigenvalues()
+    resid = float(np.abs(A @ U - (B @ U) * vals_u[None, :]).max())
+    a_inf = float(abs(A).sum(axis=1).max())
+    b_mat = bop.op.ell
+    emit(phase="config5a_generalized_g1000", n=n, nconv=nconv, info=eigs.info().name,
+         restarts=eigs.num_iterations(), operations=eigs.num_operations(),
+         inner_solves=solves, v_cycles=cycles, build_inner_solves=build_solves,
+         build_v_cycles=build_cycles, b_spmvs=b_spmvs, k1_launches=k1,
+         expected_k1_launches=expected_k1, k2_launches=k2,
+         b_format=type(b_mat).__name__, b_d=len(getattr(b_mat, "offsets", ())),
+         levels=[type(o).__name__ for o in op.mg.ops],
+         level_d=[len(o.offsets) for o in op.mg.ops],
+         build_s=build_s, build_parts_s=op.build_s, solve_s=solve_s,
+         max_rel_err_vs_analytic=rel_err, residual_inf_over_a_inf=resid / a_inf,
+         eigenvalues=vals.tolist(), history=eigs.convergence_history())
+    if nconv != 10 or eigs.info() != stt.CompInfo.Successful or rel_err > 1e-9:
+        raise RuntimeError("config #5a did not reach the analytic spectrum")
+    if resid / a_inf > 1e-9:
+        raise RuntimeError(f"config #5a's residual over ||A||_inf is {resid / a_inf}")
+    if not all(isinstance(o, pf.DiaMatrix) for o in (b_mat, *op.mg.ops)):
+        raise RuntimeError("a config #5a operator is not a DiaMatrix")
+    if b_spmvs < eigs.num_operations() or k2 != 0 or k1 != expected_k1:
+        raise RuntimeError(
+            f"config #5a: K1 {k1} (expected {expected_k1}), K2 {k2}, B SpMVs {b_spmvs}"
+        )
+    check_levels(torch, dmod, pf, op.mg, "config5a", extra=(("B", b_mat),))
+    return op, k1
 
 
 def run_north_star(torch, stt, dmod, dsmod, pmg, pf, A, dia64, matrix_s):
@@ -1415,8 +1744,8 @@ def phase_north_star_levels(torch, dsmod, dmod, pf, mg, counts, rates):
     return rows
 
 
-def profile_north_star(torch, op, solves=3):
-    """Where the north star's time goes: a few inner solves (its
+def profile_inner_solves(torch, op, phase, solves=3):
+    """Where a shift-invert path's time goes: a few inner solves (its
     operator applications) under torch.profiler, outside the counted
     run."""
     from torch.profiler import ProfilerActivity, profile
@@ -1433,7 +1762,7 @@ def profile_north_star(torch, op, solves=3):
             op.perform_op(b)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    emit_profile("profile_north_star_inner_solves", prof, wall_ms,
+    emit_profile(phase, prof, wall_ms,
                  inner_solves=solves, v_cycles=pmg.CYCLES - cycles)
 
 
@@ -1634,6 +1963,15 @@ def main(argv):
     k1_config3, k1_config3_full = phase(
         "config3", run_config3, torch, stt, dmod, dsmod, pmg, pf
     )
+    phase("config1_dense", run_config1, torch, stt)
+    phase("dense_shift_invert", run_dense_shift_invert, torch, stt)
+    phase("generalized_modes", run_generalized_modes, torch, stt)
+    op5a, k1_config5a = phase(
+        "config5a_generalized_1m", run_config5a, torch, stt, dmod, dsmod, pmg, pf
+    )
+    phase("config5a_profile", profile_inner_solves, torch, op5a,
+          "profile_config5a_inner_solves")
+    del op5a
     ns_op, k1_ns, k2_ns, ns_cycles, ns_solves = phase(
         "north_star", run_north_star, torch, stt, dmod, dsmod, pmg, pf, A243,
         dia243, matrix_s,
@@ -1643,7 +1981,8 @@ def main(argv):
         "north_star_levels", phase_north_star_levels, torch, dsmod, dmod, pf,
         ns_op.mg, (k1_ns, k2_ns, ns_cycles, ns_solves), rates,
     )
-    phase("north_star_profile", profile_north_star, torch, ns_op)
+    phase("north_star_profile", profile_inner_solves, torch, ns_op,
+          "profile_north_star_inner_solves")
     for t in k1_levels:  # launches per north-star run, from its levels
         ns = next((r for r in level_t if r["n"] == t["n"] and r["d"] == t["d"]), None)
         if ns is None:
@@ -1661,6 +2000,7 @@ def main(argv):
             max_err=worst_k1, float32=timing["float32"],
             launches_config2=launches, launches_config3=k1_config3,
             launches_config3_full_reorth=k1_config3_full,
+            launches_config5a=k1_config5a,
             launches_north_star=k1_ns,
             north_star_levels=[t for t in level_t if t["kernel"] == "dia_spmv"],
             k1_levels=k1_levels, launch_floor=k1_floor,

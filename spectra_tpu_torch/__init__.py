@@ -6,9 +6,13 @@ n-length work (SpMVs, basis projections, restart rotations) runs on
 the card, the DIA SpMVs as hand-written CUDA kernels
 (``csrc/dia_spmv.cu``, and ``csrc/dia_ds.cu`` for the double-single
 hi/lo planes of large f64 stencils); shift-invert runs its inner solves
-(multigrid, Chebyshev, MINRES, CG) on the card and SuperLU on the host.
-The small (ncv, ncv) projected problem runs on
-the host in f64. Entry points take ``device=None``, which means the
+(multigrid, Chebyshev, MINRES, CG) and the dense Bunch-Kaufman
+factorization on the card and SuperLU on the host. The generalized
+problem ``A x = lambda B x`` runs in its five modes (``GEigsMode``).
+The small (ncv, ncv) projected problem runs on the host in f64, and
+small dense f64 problems go whole to a native Krylov-Schur driver on
+the host (``csrc/dense_eigs.cpp``; ``SPECTRA_TPU_DENSE_DRIVER=torch``
+keeps them on the card). Entry points take ``device=None``, which means the
 GPU, and raise when there is none; pass ``device="cpu"`` to run the
 plain PyTorch path on the CPU. Tensors default to float64 through the
 operator's dtype; torch's global default dtype is never changed.
@@ -17,24 +21,41 @@ This package imports torch, numpy and scipy, never jax or
 ``spectra_tpu``.
 """
 
-from spectra_tpu_torch.matop.shift_solve import SparseSymShiftSolve
+from spectra_tpu_torch.matop.cholesky import DenseCholesky, SparseCholesky
+from spectra_tpu_torch.matop.dense import DenseGenMatProd, DenseSymMatProd
+from spectra_tpu_torch.matop.regular_inverse import SparseRegularInverse
+from spectra_tpu_torch.matop.shift_solve import DenseSymShiftSolve, SparseSymShiftSolve
 from spectra_tpu_torch.matop.sparse import SparseGenMatProd, SparseSymMatProd
+from spectra_tpu_torch.matop.sym_shift_invert import SymShiftInvert
 from spectra_tpu_torch.solvers.cheb_sym_eigs import ChebSymEigsSolver
 from spectra_tpu_torch.solvers.sym_eigs import SymEigsSolver
 from spectra_tpu_torch.solvers.sym_eigs_shift import SymEigsShiftSolver
+from spectra_tpu_torch.solvers.sym_geigs import SymGEigsSolver
+from spectra_tpu_torch.solvers.sym_geigs_shift import SymGEigsShiftSolver
 from spectra_tpu_torch.sparse.formats import DiaHiLoMatrix, maybe_hilo
 from spectra_tpu_torch.util.compinfo import CompInfo
+from spectra_tpu_torch.util.geigsmode import GEigsMode
 from spectra_tpu_torch.util.selection import SortRule
 
 __all__ = [
     "ChebSymEigsSolver",
     "CompInfo",
+    "DenseCholesky",
+    "DenseGenMatProd",
+    "DenseSymMatProd",
+    "DenseSymShiftSolve",
     "DiaHiLoMatrix",
+    "GEigsMode",
     "SortRule",
+    "SparseCholesky",
     "SparseGenMatProd",
+    "SparseRegularInverse",
     "SparseSymMatProd",
     "SparseSymShiftSolve",
     "SymEigsShiftSolver",
     "SymEigsSolver",
+    "SymGEigsShiftSolver",
+    "SymGEigsSolver",
+    "SymShiftInvert",
     "maybe_hilo",
 ]

@@ -9,7 +9,9 @@ restart compression from one JAX Krylov state.
 import numpy as np
 import torch
 
+from spectra_tpu_torch.linalg.bkldlt import BKFactors
 from spectra_tpu_torch.linalg.krylov import KrylovState
+from spectra_tpu_torch.matop.dense import DenseSymMatProd
 from spectra_tpu_torch.sparse.formats import DiaMatrix, EllMatrix
 from spectra_tpu_torch.util.capabilities import resolve_device
 
@@ -52,4 +54,22 @@ def krylov_state_from_numpy(V, H, f, beta, k, nops, device=None,
         k=int(k),
         nops=int(nops),
         seed=int(seed),
+    )
+
+
+def dense_from_numpy(mat, device=None) -> DenseSymMatProd:
+    """A :class:`DenseSymMatProd` holding ``mat`` as it is (already full
+    symmetric: no triangle read)."""
+    return DenseSymMatProd(mat=_tensor(mat, resolve_device(device)))
+
+
+def bk_factors_from_numpy(L, d, e, is2x2, perm, ok, device=None) -> BKFactors:
+    """:class:`BKFactors` from the arrays of a JAX ``BKFactors``, so that
+    the port's ``solve`` runs on the JAX package's factorization."""
+    device = resolve_device(device)
+    return BKFactors(
+        L=_tensor(L, device), d=_tensor(d, device), e=_tensor(e, device),
+        is2x2=_tensor(np.asarray(is2x2, bool), device),
+        perm=_tensor(np.asarray(perm, np.int64), device),
+        ok=bool(ok),
     )

@@ -1,12 +1,14 @@
-"""The inner-product geometry of the Krylov process.
+"""The B-inner-product geometry of the Krylov process.
 
-Port of :mod:`spectra_tpu.matop.arnoldi_op` with ``B = I`` only
-(reference: include/Spectra/MatOp/internal/ArnoldiOp.h:33-162): inner
-products, projections and norms are plain dots on the operator's
-device. :class:`LockedArnoldiOp` deflates it against locked Ritz
-vectors (``compute_locked``). The B-metric of generalized problems
-(ROADMAP.md item 13) and the J-structured operator of the Hermitian
-embedding (item 14) wait for their slices.
+Port of :mod:`spectra_tpu.matop.arnoldi_op` (reference:
+include/Spectra/MatOp/internal/ArnoldiOp.h:33-162): the Krylov operator
+with the metric ``B`` of a generalized problem, so that inner products,
+projections and norms are taken in ``<x, y> = x^H B y``, on the
+operator's device. ``bop=None`` means B = I, and then each is a plain
+dot with no B product. :class:`LockedArnoldiOp` deflates it against
+locked Ritz vectors (``compute_locked``) in the same metric. The
+J-structured operator of the Hermitian embedding waits for its slice
+(ROADMAP.md item 14).
 """
 
 import torch
@@ -14,25 +16,29 @@ import torch
 from spectra_tpu_torch.ops.gemv import basis_apply, basis_proj, vec_dot
 
 
-class ArnoldiOp:
-    """Krylov operator with the standard (B = I) inner product."""
+class IdentityBOp:
+    """Placeholder for B = I (the standard eigenvalue problem)."""
 
-    def __init__(self, op):
+    __slots__ = ()
+
+
+class ArnoldiOp:
+    """Krylov operator and B-metric; ``bop=None`` means B = I."""
+
+    def __init__(self, op, bop=None):
         self.op = op
+        self.bop = bop
 
     @classmethod
     def create(cls, op, bop=None):
-        if bop is not None:
-            raise NotImplementedError(
-                "a B-metric (generalized problem) waits for its slice: "
-                "ROADMAP.md item 13"
-            )
-        if hasattr(op, "j_map"):
+        if isinstance(bop, IdentityBOp):
+            bop = None
+        if bop is None and hasattr(op, "j_map"):
             raise NotImplementedError(
                 "J-structured operators wait for their slice: "
                 "ROADMAP.md item 14"
             )
-        return cls(op)
+        return cls(op, bop)
 
     @property
     def dtype(self):
@@ -49,17 +55,23 @@ class ArnoldiOp:
         """The 'A' operator generating the Krylov subspace."""
         return self.op.perform_op(x)
 
+    def apply_b(self, y):
+        """B y (y itself when B = I)."""
+        if self.bop is None:
+            return y
+        return self.bop.perform_op(y)
+
     def inner_product(self, x, y):
-        """<x, y> = x^H y, a 0-d tensor."""
-        return vec_dot(x, y)
+        """<x, y> = x^H B y, a 0-d tensor."""
+        return vec_dot(x, self.apply_b(y))
 
     def adjoint_product(self, X, y):
-        """<x_i, y> for a row-major basis block X (m, n): the projection
-        GEMV of the hot loop."""
-        return basis_proj(X, y)
+        """<x_i, y>_B for a row-major basis block X (m, n): the
+        projection GEMV of the hot loop."""
+        return basis_proj(X, self.apply_b(y))
 
     def norm(self, x):
-        """sqrt(real(x^H x)), a 0-d tensor."""
+        """The B-norm sqrt(real(x^H B x)), a 0-d tensor."""
         return torch.sqrt(torch.real(self.inner_product(x, x)))
 
     def deflate(self, y):
@@ -73,14 +85,14 @@ class ArnoldiOp:
 
 class LockedArnoldiOp:
     """An :class:`ArnoldiOp` deflated against locked (converged) Ritz
-    vectors: ``perform_op = P . inner . P`` with the projector
-    ``P y = y - sum_blocks blk^T (blk y)``.
+    vectors: ``perform_op = P . inner . P`` with the B-orthogonal
+    projector ``P y = y - sum_blocks blk^T (blk B y)``.
 
-    ``locked`` is a TUPLE of (q_i, n) row-major orthonormal blocks, one
+    ``locked`` is a TUPLE of (q_i, n) row-major B-orthonormal blocks, one
     per completed locking round, never concatenated: at the north star's
     scale a concatenation would hold both blocks and their copy at once,
     while the per-block projections stay bounded. The Krylov process
-    then explores only the orthogonal complement of the locked vectors:
+    then explores only the B-orthogonal complement of the locked vectors:
     restarted there from a fresh random vector, it finds the remaining
     copies of degenerate eigenvalues that one Krylov sequence cannot
     resolve. On span(locked) the deflated operator is 0, which no
@@ -98,6 +110,10 @@ class LockedArnoldiOp:
         return self.inner.op
 
     @property
+    def bop(self):
+        return self.inner.bop
+
+    @property
     def dtype(self):
         return self.inner.dtype
 
@@ -109,13 +125,16 @@ class LockedArnoldiOp:
         return self.inner.rows()
 
     def deflate(self, y):
-        """``P y``: remove the components along every locked block."""
+        """``P y``: remove the B-components along every locked block."""
         for blk in self.locked:
             y = y - basis_apply(blk, self.inner.adjoint_product(blk, y))
         return y
 
     def perform_op(self, x):
         return self.deflate(self.inner.perform_op(self.deflate(x)))
+
+    def apply_b(self, y):
+        return self.inner.apply_b(y)
 
     def inner_product(self, x, y):
         return self.inner.inner_product(x, y)

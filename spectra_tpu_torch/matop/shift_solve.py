@@ -1,11 +1,16 @@
-"""Sparse shift-solve operators: ``y = (A - sigma I)^{-1} x``.
+"""Shift-solve operators: ``y = (A - sigma I)^{-1} x``.
 
-Port of the sparse symmetric part of :mod:`spectra_tpu.matop.shift_solve`
-(reference: include/Spectra/MatOp/SparseSymShiftSolve.h). Following the
-reference's API, an operator is created unshifted and ``set_shift(sigma)``
-builds the solver for ``A - sigma I``, returning a new operator.
+Port of the symmetric part of :mod:`spectra_tpu.matop.shift_solve`
+(reference: include/Spectra/MatOp/DenseSymShiftSolve.h:33-110,
+SparseSymShiftSolve.h). Following the reference's API, an operator is
+created unshifted and ``set_shift(sigma)`` builds the solver for
+``A - sigma I``, returning a new operator.
 
-Methods:
+:class:`DenseSymShiftSolve` factors the dense matrix with the
+Bunch-Kaufman LDL^T of :mod:`spectra_tpu_torch.linalg.bkldlt` on the
+matrix's device; each ``perform_op`` is two triangular solves there.
+
+Methods of :class:`SparseSymShiftSolve`:
 
 * ``"splu"``: one host SuperLU factorization of ``A - sigma I`` (scipy);
   each ``perform_op`` copies the right-hand side to the host, solves and
@@ -29,8 +34,8 @@ ELL, :func:`dia_device_from_scipy`), couple their tolerance to the outer
 one (:func:`couple_inner_tolerance`), and NaN-poison a solve whose
 backward error is too large (:func:`_poison_if_unconverged`).
 
-The dense shift-solves, ``SparseGenRealShiftSolve`` and
-``SparseGenComplexShiftSolve`` wait for their slices (ROADMAP.md).
+The Hermitian and general shift-solves wait for their slices
+(ROADMAP.md items 12 and 14).
 """
 
 import dataclasses
@@ -40,7 +45,9 @@ import warnings
 import numpy as np
 import torch
 
+from spectra_tpu_torch.linalg import bkldlt
 from spectra_tpu_torch.matop.arnoldi_op import ArnoldiOp, LockedArnoldiOp
+from spectra_tpu_torch.matop.dense import _as_tensor, _symmetrize
 from spectra_tpu_torch.ops.gemv import vec_dot
 from spectra_tpu_torch.sparse.formats import symmetrize_scipy
 from spectra_tpu_torch.util.capabilities import resolve_device
@@ -48,8 +55,47 @@ from spectra_tpu_torch.util.dtypes import eps as dtype_eps
 
 
 class ShiftFactorizationError(RuntimeError):
-    """``A - sigma I`` is singular (the reference throws
-    std::invalid_argument, SymShiftInvert.h:225-226)."""
+    """``A - sigma I`` (or ``A - sigma B``) is singular (the reference
+    throws std::invalid_argument, SymShiftInvert.h:225-226)."""
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DenseSymShiftSolve:
+    """``(A - sigma I)^{-1} x`` for dense real symmetric A by BKLDLT
+    (reference: DenseSymShiftSolve.h:13,51,86). ``create(mat, uplo,
+    device=...)``; ``set_shift`` factors on the matrix's device."""
+
+    mat: torch.Tensor
+    factors: object = None  # BKFactors, or None before set_shift
+
+    @classmethod
+    def create(cls, mat, uplo: str = "L", device=None):
+        return cls(mat=_symmetrize(_as_tensor(mat, device), uplo))
+
+    @property
+    def dtype(self):
+        return self.mat.dtype
+
+    @property
+    def device(self):
+        return self.mat.device
+
+    def rows(self) -> int:
+        return self.mat.shape[0]
+
+    def cols(self) -> int:
+        return self.mat.shape[1]
+
+    def set_shift(self, sigma):
+        fac = bkldlt.factorize(self.mat, sigma)
+        if not fac.ok:
+            raise ShiftFactorizationError(
+                "factorization failed: sigma is an eigenvalue of the matrix"
+            )
+        return DenseSymShiftSolve(mat=self.mat, factors=fac)
+
+    def perform_op(self, x):
+        return bkldlt.solve(self.factors, x)
 
 
 #: Inner/outer tolerance coupling: the inner solve targets a relative
@@ -65,28 +111,38 @@ def coupled_inner_rtol(outer_tol: float, work_dtype) -> float:
 
 
 def couple_inner_tolerance(obj, outer_tol: float):
-    """``obj`` (a shift-solve operator, or an :class:`ArnoldiOp` or
-    :class:`LockedArnoldiOp` around one) rebuilt with
-    :func:`coupled_inner_rtol` of ``outer_tol`` when it is an iterative
-    solve whose inner tolerance the user did not pin; any other operator
-    is returned as it is. The solver drivers call it on every
-    ``compute``, locked rounds included: a stale loose coupling from an
-    earlier ``compute(tol=coarse)`` would converge on a perturbed
-    operator and report ``Successful`` with wrong eigenvalues."""
+    """``obj`` (an operator, or an :class:`ArnoldiOp` or
+    :class:`LockedArnoldiOp` around one) with every iterative shift-solve
+    inside it whose inner tolerance the user did not pin rebuilt with
+    :func:`coupled_inner_rtol` of ``outer_tol``. Composed operators (the
+    generalized modes') are searched through their dataclass fields;
+    an operator with nothing to couple is returned as it is. The solver
+    drivers call it on every ``compute``, locked rounds included: a
+    stale loose coupling from an earlier ``compute(tol=coarse)`` would
+    converge on a perturbed operator and report ``Successful`` with
+    wrong eigenvalues."""
     if isinstance(obj, LockedArnoldiOp):
         inner = couple_inner_tolerance(obj.inner, outer_tol)
         return obj if inner is obj.inner else LockedArnoldiOp(inner, obj.locked)
     if isinstance(obj, ArnoldiOp):
         op = couple_inner_tolerance(obj.op, outer_tol)
-        return obj if op is obj.op else ArnoldiOp(op)
-    if (
-        isinstance(obj, SparseShiftSolveBase)
-        and obj.method != "splu"
-        and not obj.inner_rtol_user
-    ):
-        return dataclasses.replace(
-            obj, inner_rtol=coupled_inner_rtol(outer_tol, obj.shifted.dtype)
-        )
+        bop = couple_inner_tolerance(obj.bop, outer_tol)
+        return obj if op is obj.op and bop is obj.bop else ArnoldiOp(op, bop)
+    if isinstance(obj, SparseShiftSolveBase):
+        if obj.method != "splu" and not obj.inner_rtol_user:
+            return dataclasses.replace(
+                obj, inner_rtol=coupled_inner_rtol(outer_tol, obj.shifted.dtype)
+            )
+        return obj
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        changes = {}
+        for field in dataclasses.fields(obj):
+            value = getattr(obj, field.name)
+            new = couple_inner_tolerance(value, outer_tol)
+            if new is not value:
+                changes[field.name] = new
+        if changes:
+            return dataclasses.replace(obj, **changes)
     return obj
 
 
@@ -249,7 +305,7 @@ class SparseShiftSolveBase:
 def _resolve_sparse_method(method: str) -> str:
     """``"auto"`` is the host SuperLU, as in the JAX package wherever
     its runtime has host callbacks; the port can always reach the
-    host."""
+    host. ``"bicgstab"`` raises, naming its slice."""
     if method == "auto":
         return "splu"
     if method not in ("splu", "cg", "minres", "cheb", "mg"):

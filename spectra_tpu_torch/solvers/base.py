@@ -7,6 +7,11 @@ locking (``compute_locked``), result extraction and the
 Spectra-compatible accessors. The iteration itself is the host loop of
 :mod:`spectra_tpu_torch.solvers._herm_core`: n-length tensors on the
 operator's device, the small projected problem on the host in f64.
+Small dense f64 problems go to the native Krylov-Schur driver instead
+(:mod:`spectra_tpu_torch.solvers._native_dense`), as in the JAX
+package. A generalized problem's metric ``bop`` enters through the
+:class:`ArnoldiOp`, and ``_vector_transform`` maps the Krylov vectors
+back to the problem's eigenvectors (the Cholesky mode's ``L^{-H}``).
 
 ``eigenvalues()`` returns a numpy array, as in the JAX package;
 ``eigenvectors()`` returns a tensor on the operator's device.
@@ -56,6 +61,7 @@ class HermEigsBase:
         if op.dtype not in (torch.float32, torch.float64):
             raise _waits("a complex (Hermitian) operator", 14)
         self._op = op
+        self._has_bop = bop is not None
         self._arnop = ArnoldiOp.create(op, bop)
         n = op.rows()
         if op.cols() != n:
@@ -74,6 +80,7 @@ class HermEigsBase:
         self._niter = 0
         self._nops = 0
         self._v0 = None
+        self._v0_host = None
         self._result = None
         self._restart_chunk = None
         self._restart_method = "implicit"
@@ -84,6 +91,7 @@ class HermEigsBase:
         self._history = []
         self._locking_certified = False
         self._locking_rounds = []
+        self._locking_round = False
 
     # -- options ---------------------------------------------------------
     def set_restart_method(self, method: str):
@@ -211,6 +219,12 @@ class HermEigsBase:
         if torch.linalg.vector_norm(v0).item() < np.finfo(np.float64).tiny * 10:
             raise ValueError("initial residual vector cannot be zero")
         self._v0 = v0
+        # The host copy for the native dense driver, which then needs no
+        # read back from the card.
+        self._v0_host = (
+            None if torch.is_tensor(init_resid)
+            else np.asarray(init_resid, numpy_dtype(self._dtype))
+        )
         self._info = CompInfo.NotComputed
         self._niter = 0
         self._nops = 0
@@ -230,6 +244,13 @@ class HermEigsBase:
         from spectra_tpu_torch.matop.shift_solve import couple_inner_tolerance
 
         self._arnop = couple_inner_tolerance(self._arnop, tol)
+        if type(self)._mode == "lanczos":
+            from spectra_tpu_torch.solvers import _native_dense
+
+            if _native_dense.eligible(self):
+                res = _native_dense.compute(self, selection, maxit, tol, sorting)
+                if res is not None:
+                    return self._finish_result(res)
         fixed = dict(
             nev=self._nev, ncv=self._ncv, selection=selection,
             mode=self._eff_mode(), restart_method=self._restart_method,
@@ -329,7 +350,8 @@ class HermEigsBase:
             raise ValueError("ncv_locked must exceed nev")
         if self._v0 is None:
             self.init()
-        base_arnop, base_ncv, base_v0 = self._arnop, self._ncv, self._v0
+        base_arnop, base_ncv = self._arnop, self._ncv
+        base_v0, base_v0_host = self._v0, self._v0_host
         vals = None
         blocks = []  # one (q, n) block per round, never concatenated
         niter = nops = 0
@@ -338,6 +360,9 @@ class HermEigsBase:
         try:
             for rnd in range(max_rounds):
                 try:
+                    # A deflated round never goes to the native dense
+                    # driver, which has no deflation.
+                    self._locking_round = rnd > 0
                     if rnd > 0:
                         if ncv_locked is not None:
                             self._ncv = int(ncv_locked)
@@ -394,7 +419,9 @@ class HermEigsBase:
                     self._locking_certified = True
                     break
         finally:
-            self._arnop, self._ncv, self._v0 = base_arnop, base_ncv, base_v0
+            self._arnop, self._ncv = base_arnop, base_ncv
+            self._v0, self._v0_host = base_v0, base_v0_host
+            self._locking_round = False
 
         if vals is None or len(vals) == 0:
             self._result = None
@@ -482,4 +509,12 @@ class HermEigsBase:
         if nvec is not None:
             small = small[:, : min(nvec, small.shape[1])]
         # V is (ncv, n) row-major; eigenvectors are columns of V^T S.
-        return res.V.mT @ small.to(res.V.device, res.V.dtype)
+        return self._vector_transform(
+            res.V.mT @ small.to(res.V.device, res.V.dtype)
+        )
+
+    def _vector_transform(self, vecs):
+        """Hook mapping the Krylov problem's Ritz vectors to eigenvectors
+        of the original problem (the Cholesky mode's back-solve,
+        reference: SymGEigsSolver.h:195-207); identity here."""
+        return vecs

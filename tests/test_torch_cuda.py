@@ -339,3 +339,63 @@ def test_dia_probes_raise_for_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         dv.dia_roll2d(torch.ones((3, 4096), device="cuda"), far,
                       torch.ones(4096, device="cuda"), rows=256)
+
+
+def _bk_matrix(n, complex_):
+    rng = np.random.default_rng(n)
+    A = rng.uniform(size=(n, n)) - 0.5
+    if complex_:
+        A = A + 1j * (rng.uniform(size=(n, n)) - 0.5)
+    return A + A.conj().T
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("complex_", [False, True], ids=["real", "complex"])
+@pytest.mark.parametrize("n", [1, 2, 37, 300])
+def test_bkldlt_on_card_matches_cpu(cuda, n, complex_):
+    """BKLDLT ``factorize``/``solve`` on the card against the same calls
+    on the CPU: the same pivots, factors and solves within 1e-12."""
+    from spectra_tpu_torch.linalg import bkldlt
+
+    A = torch.from_numpy(_bk_matrix(n, complex_))
+    b = torch.from_numpy(np.random.default_rng(n + 1).normal(size=(n, 3))).to(A.dtype)
+    cpu = bkldlt.factorize(A, 0.3)
+    card = bkldlt.factorize(A.cuda(), 0.3)
+    assert card.ok == cpu.ok
+    assert torch.equal(card.perm.cpu(), cpu.perm)
+    assert torch.equal(card.is2x2.cpu(), cpu.is2x2)
+    for name in ("L", "d", "e"):
+        want = getattr(cpu, name)
+        got = getattr(card, name).cpu()
+        assert (got - want).abs().max() <= 1e-12 * max(want.abs().max(), 1.0)
+    x_cpu = bkldlt.solve(cpu, b)
+    x_card = bkldlt.solve(card, b.cuda()).cpu()
+    assert (x_card - x_cpu).abs().max() <= 1e-12 * x_cpu.abs().max()
+
+
+@pytest.mark.cuda
+def test_generalized_shift_invert_on_card(cuda):
+    """One generalized mode end to end on the card: the ShiftInvert mode
+    on config #5a's pair at g=32 with the multigrid inner solve, against
+    the analytic eigenvalues; K1 runs B's SpMV and every level."""
+    import spectra_tpu_torch as stt
+
+    g = 32
+    lap1 = sps.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(g, g))
+    A = (sps.kron(sps.eye(g), lap1) + sps.kron(lap1, sps.eye(g))).tocsr()
+    m1 = sps.diags([1.0 / 6, 2.0 / 3, 1.0 / 6], [-1, 0, 1], shape=(g, g))
+    B = sps.kron(sps.eye(g), m1).tocsr()
+    before = dmod.LAUNCHES
+    op = stt.SymShiftInvert.create(A, B, method="mg").set_shift(0.0)
+    bop = stt.SparseSymMatProd.from_full(B)
+    e = stt.SymGEigsShiftSolver.from_factored(op, bop, 6, 20, 0.0)
+    e.init()
+    assert e.compute(stt.SortRule.LargestMagn, tol=1e-10) == 6
+    torch.cuda.synchronize()
+    assert e.info() == stt.CompInfo.Successful and dmod.LAUNCHES > before
+    theta = np.arange(1, g + 1) * np.pi / (g + 1)
+    lam, mu = 2 - 2 * np.cos(theta), (2 + np.cos(theta)) / 3
+    want = np.sort(((lam[:, None] + lam[None, :]) / mu[None, :]).ravel())[:6]
+    np.testing.assert_allclose(np.sort(e.eigenvalues()), want, rtol=1e-10, atol=0)
+    U = e.eigenvectors().cpu().numpy()
+    assert np.abs(A @ U - (B @ U) * e.eigenvalues()).max() < 1e-9

@@ -55,6 +55,20 @@ def test_entry_points_default_to_the_gpu():
         stt.SparseSymShiftSolve.create(lap, method="mg").set_shift(0.0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         stt.SparseSymShiftSolve.create(lap).set_shift(0.0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stt.DenseSymMatProd.create(np.eye(4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stt.DenseSymShiftSolve.create(np.eye(4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stt.DenseCholesky.create(np.eye(4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stt.SparseCholesky.create(lap)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stt.SparseRegularInverse.create(lap)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stt.SymShiftInvert.create(lap, lap).set_shift(0.5)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stt.SymShiftInvert.create(lap.toarray(), lap.toarray()).set_shift(0.5)
     op = stt.SparseSymMatProd.from_full(lap, device="cpu")
     assert op.device.type == "cpu"
     s = stt.SymEigsSolver(op, nev=2, ncv=8)
@@ -68,7 +82,12 @@ def test_public_surface():
         "ChebSymEigsSolver", "CompInfo", "DiaHiLoMatrix", "SortRule",
         "SparseGenMatProd", "SparseSymMatProd", "SparseSymShiftSolve",
         "SymEigsShiftSolver", "SymEigsSolver", "maybe_hilo",
+        "GEigsMode", "DenseSymMatProd", "DenseGenMatProd",
+        "DenseSymShiftSolve", "DenseCholesky", "SparseCholesky",
+        "SparseRegularInverse", "SymShiftInvert", "SymGEigsSolver",
+        "SymGEigsShiftSolver",
     }
+    assert all(hasattr(stt, name) for name in stt.__all__)
     A = sps.random(20, 20, density=0.3, random_state=0, format="csr")
     op = stt.SparseGenMatProd.create(A, device="cpu")
     x = np.random.default_rng(0).normal(size=20)
