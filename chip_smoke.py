@@ -63,6 +63,19 @@ Phases, each printing JSON lines and its wall time:
     inner solve and the stepped driver, against the analytic values,
     with K1's launches (B's SpMVs and every level) counted, and a
     profile of a few of its inner solves;
+11f. config #4 as ``bench.py:272-300`` runs it: the 6 largest in
+    magnitude of the g=500 2-D convection-diffusion operator (n =
+    250,000, non-symmetric, DIA d=5) by the IRAM, checked by its
+    backward error, with K1's launches asserted equal to the solve's
+    operator applications, K1 bitwise on A's planes and timed at this
+    shape, and a profile of three restarts;
+11g. the reference benchmark's general case (dense n=1000, nev 10,
+    ncv 30) on both dense drivers (the native driver's general leg on
+    the host, the IRAM on the card);
+11h. the general shift modes once each: the real and complex dense LU
+    shift-solves at n=1000, the sparse real shift-solve by SuperLU and
+    by BiCGStab (K1) and the sparse complex one by SuperLU on config
+    #4's operator at g=100, and the Krylov-Schur restart there;
 12. the north star as ``scripts/tpu_northstar_100m.py:158-174`` runs
     it: shift-invert with the multigrid inner solve, the stepped driver
     and ``compute_locked`` for the 20 smallest eigenvalues, counted with
@@ -73,7 +86,8 @@ Phases, each printing JSON lines and its wall time:
 13. a ``kernels`` line with each kernel's numbers;
 14. the last line, ``{"ok": true, "device": {...}}``.
 
-Each path (the probes, config #2, config #3, config #5a, the north star) sets the
+Each path (the probes, config #2, config #3, config #5a, config #4, the
+north star) sets the
 launch counters to 0 just before it and reads them just after. Any
 failed check raises, so the script exits non-zero and prints no ``ok``
 line. Without a CUDA device it exits with code 2 before any phase. Only
@@ -1571,6 +1585,215 @@ def run_config5a(torch, stt, dmod, dsmod, pmg, pf):
     return op, k1
 
 
+def config4_matrix(g):
+    """``bench.py:284-292``: the 2-D convection-diffusion operator
+    ``kron(I, lap1) + kron(lap1, I) + 0.3 kron(I, upw1)``, upwind
+    convection on the inner axis."""
+    import scipy.sparse as sps
+
+    lap1 = sps.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(g, g))
+    upw1 = sps.diags([-1.0, 1.0], [-1, 0], shape=(g, g))
+    return (sps.kron(sps.eye(g), lap1) + sps.kron(lap1, sps.eye(g))
+            + 0.3 * sps.kron(sps.eye(g), upw1)).tocsr()
+
+
+def gen_check(A, e, k, phase, **extra):
+    """One general solve's check: k/k ``Successful`` and
+    ``||AU - U Lambda||_inf <= 1e-9`` on the original A, in complex128
+    on the host."""
+    vals = e.eigenvalues()
+    U = e.eigenvectors().cpu().numpy()
+    resid = float(np.abs(A @ U - U * vals[None, :]).max()) if len(vals) else None
+    emit(phase=phase, n=A.shape[0], nconv=len(vals), info=e.info().name,
+         restarts=e.num_iterations(), operations=e.num_operations(),
+         residual_inf=resid, vectors_device=str(e.eigenvectors().device), **extra)
+    if len(vals) != k or e.info().name != "Successful" or resid > 1e-9:
+        raise RuntimeError(f"{phase} {extra.get('run', '')} failed: {len(vals)}/{k}, "
+                           f"residual {resid}")
+
+
+def run_config4(torch, stt, dmod, pf, rates, floor):
+    """Config #4 as ``bench.py:272-300`` runs it: ``SparseGenMatProd.create``
+    of the g=500 convection-diffusion operator (n = 250,000, nnz =
+    1,248,000; DIA on the card, d=5, under the hi/lo threshold),
+    ``GenEigsSolver(op, nev=6, ncv=30)``, ``init(SimpleRandom(0))``,
+    ``compute(LargestMagn, maxit=500, tol=1e-10)``. Checks 6/6
+    ``Successful``, ``||AU - U Lambda||_inf <= 1e-9`` (the backward error
+    is the contract: f64 cannot reach the analytic spectrum, whose
+    similarity has condition number 1.3^249.5), values closed under
+    conjugation, and K1's launches equal to ``num_operations()``, one a
+    product. Then K1 bitwise on A's planes against its plain version, and
+    timed at this shape beside its bound, the launch floor and the
+    ``torch.sparse`` CSR call. Returns the operator, the start, K1's
+    launches and its timing."""
+    from spectra_tpu_torch.util.rng import SimpleRandom
+
+    bandwidth, f64_rate, _ = rates
+    g = 500
+    A = config4_matrix(g)
+    n = A.shape[0]
+    v0 = SimpleRandom(0).random_vec(n)
+    op = stt.SparseGenMatProd.create(A)  # DIA on the card
+    m = op.ell
+    if not isinstance(m, pf.DiaMatrix) or m.offsets != (-g, -1, 0, 1, g):
+        raise RuntimeError(f"config #4's operator is {type(m).__name__} {m.offsets}")
+    torch.cuda.synchronize()
+    dmod.LAUNCHES = 0
+    t0 = time.perf_counter()
+    e = stt.GenEigsSolver(op, nev=6, ncv=30)
+    e.init(v0)
+    nconv = e.compute(stt.SortRule.LargestMagn, maxit=500, tol=1e-10)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dmod.LAUNCHES
+    vals = e.eigenvalues()
+    gen_check(
+        A, e, 6, "config4_gen_sparse_g500", run="bench.py", nnz=int(A.nnz),
+        format=type(m).__name__, offsets=list(m.offsets), k1_launches=launches,
+        solve_s=wall, eigenvalues_re=vals.real.tolist(), eigenvalues_im=vals.imag.tolist(),
+    )
+    closed = all(np.min(np.abs(np.conj(v) - vals)) <= 1e-12 * abs(v) for v in vals)
+    if nconv != 6 or not closed:
+        raise RuntimeError(f"config #4: nconv {nconv}, closed under conjugation {closed}")
+    if launches != e.num_operations():
+        raise RuntimeError(f"config #4: K1 {launches} launches, {e.num_operations()} products")
+    x = torch.randn(n, dtype=torch.float64, device="cuda")
+    y = m.matvec(x)
+    want = dmod.dia_spmv_plain(m.data, m.offsets, x, m.n_cols)
+    if not torch.equal(y, want):
+        raise RuntimeError("K1 is not bitwise its plain version on config #4's planes")
+    timer = Timer(torch)
+    csr = torch_csr(torch, A, np.float64)
+    d = len(m.offsets)
+    t = timed_entry(
+        timer, lambda: m.matvec(x), lambda: dmod.dia_spmv_plain(m.data, m.offsets, x, n),
+        lambda: csr @ x, (d + 2) * 8 * n, 2 * A.nnz, f64_rate, bandwidth,
+        back_to_back=True,
+    )
+    t.update(kernel="dia_spmv", n=n, d=d, nnz=int(A.nnz), launches=launches,
+             floor_ms=floor["ms"], floor_back_to_back_ms=floor["back_to_back_ms"],
+             enqueue_us=enqueue_us(torch, lambda: m.matvec(x)),
+             config=dmod.card_launch(n, 1, 0), max_abs_err=0.0)
+    emit(phase="config4_k1_timing", **t)
+    return op, v0, launches, t
+
+
+def profile_config4(torch, stt, op, v0):
+    """Where config #4's time goes: the start and three restarts of the
+    same solve under torch.profiler, outside the counted run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        e = stt.GenEigsSolver(op, nev=6, ncv=30)
+        e.init(v0)
+        e.compute(stt.SortRule.LargestMagn, maxit=3, tol=1e-10)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    emit_profile("profile_config4_restarts", prof, wall_ms,
+                 restarts=e.num_iterations() - 1, operations=e.num_operations())
+
+
+def gen_matrix_n1000():
+    """``benchmark/harness.py:44-45,101-102``: the reference benchmark's
+    general case, ``default_rng(1000).uniform(size=(1000, 1000)) - 0.5``."""
+    return np.random.default_rng(1000).uniform(size=(1000, 1000)) - 0.5
+
+
+def run_gen_dense(torch, stt):
+    """The reference benchmark's case ``("gen", 1000, 10, 30)``
+    (``benchmark/harness.py:71-83,143``): nev 10, ncv 30, LargestMagn,
+    maxit 1000, tol 1e-10, v0 ``SimpleRandom(0)``, on the dense drivers
+    ``auto`` (the native driver's general leg, host) and ``torch`` (the
+    IRAM on dense products on the card); each wall the minimum of 3
+    after a warm-up, as ``bench.py`` takes it. Checks 10/10,
+    ``||AU - U Lambda||_inf <= 1e-9``, every value within 1e-8 of an
+    eigenvalue from ``numpy.linalg.eigvals`` and no native fallback."""
+    import os
+
+    from spectra_tpu_torch.solvers import _native_dense
+    from spectra_tpu_torch.util.rng import SimpleRandom
+
+    A = gen_matrix_n1000()
+    n, k, m = 1000, 10, 30
+    v0 = SimpleRandom(0).random_vec(n)
+    w = np.linalg.eigvals(A)
+    _native_dense.FALLBACKS = 0
+    prev = os.environ.get("SPECTRA_TPU_DENSE_DRIVER")
+    walls = {}
+    try:
+        for driver in ("auto", "torch"):
+            os.environ["SPECTRA_TPU_DENSE_DRIVER"] = driver
+            e = stt.GenEigsSolver(stt.DenseGenMatProd.create(A), nev=k, ncv=m)
+            native = _native_dense.eligible(e, sym=False)
+            e.init(v0)
+            e.compute(stt.SortRule.LargestMagn, maxit=1000, tol=1e-10)
+            times = []
+            for _ in range(3):
+                e.init(v0)
+                t0 = time.perf_counter()
+                e.compute(stt.SortRule.LargestMagn, maxit=1000, tol=1e-10)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            walls[driver] = min(times)
+            err = float(max(np.min(np.abs(w - v)) for v in e.eigenvalues()))
+            gen_check(A, e, k, "gen_dense_n1000", run=driver, routed_native=native,
+                      wall_s=min(times), walls_s=times, max_dist_to_eigvals=err)
+            if native != (driver == "auto") or err > 1e-8:
+                raise RuntimeError(f"gen n=1000 ({driver}): native {native}, error {err}")
+    finally:
+        if prev is None:
+            os.environ.pop("SPECTRA_TPU_DENSE_DRIVER", None)
+        else:
+            os.environ["SPECTRA_TPU_DENSE_DRIVER"] = prev
+    emit(phase="gen_dense_n1000_fallbacks", fallbacks=_native_dense.FALLBACKS,
+         native_over_torch=walls["auto"] / walls["torch"])
+    if _native_dense.FALLBACKS != 0:
+        raise RuntimeError("a native general solve fell back to the IRAM")
+
+
+def run_gen_shift_modes(torch, stt, dmod):
+    """One solve of each general shift mode, each checked by
+    ``||AU - U Lambda||_inf <= 1e-9`` on the original A, with its wall:
+    the real and the complex dense LU shift-solves on the n=1000 matrix
+    (sigma 0.5, and 0.5 + 0.5i), the sparse real shift-solve by SuperLU
+    and by BiCGStab (K1 on the card) and the sparse complex one by
+    SuperLU on config #4's operator at g=100 (sigma 0, and 0.2 + 0.3i),
+    and the Krylov-Schur restart on the same operator."""
+    A = gen_matrix_n1000()
+    S = config4_matrix(100)
+    runs = [
+        ("dense_real_shift_lu", A, lambda: stt.GenEigsRealShiftSolver(
+            stt.DenseGenRealShiftSolve.create(A), 6, 20, 0.5)),
+        ("dense_complex_shift_lu", A, lambda: stt.GenEigsComplexShiftSolver(
+            stt.DenseGenComplexShiftSolve.create(A), 6, 20, 0.5, 0.5)),
+        ("sparse_real_shift_splu", S, lambda: stt.GenEigsRealShiftSolver(
+            stt.SparseGenRealShiftSolve.create(S, method="splu"), 6, 20, 0.0)),
+        ("sparse_real_shift_bicgstab", S, lambda: stt.GenEigsRealShiftSolver(
+            stt.SparseGenRealShiftSolve.create(S, method="bicgstab"), 6, 20, 0.0)),
+        ("sparse_complex_shift_splu", S, lambda: stt.GenEigsComplexShiftSolver(
+            stt.SparseGenComplexShiftSolve.create(S, method="splu"), 6, 20, 0.2, 0.3)),
+        ("krylov_schur_g100", S, lambda: stt.GenEigsSolver(
+            stt.SparseGenMatProd.create(S), 6, 30)),
+    ]
+    for label, M, make in runs:
+        torch.cuda.synchronize()
+        before = dmod.LAUNCHES
+        t0 = time.perf_counter()
+        e = make()
+        if label == "krylov_schur_g100":
+            e.set_restart_method("krylov_schur")
+        e.init()
+        e.compute(stt.SortRule.LargestMagn, maxit=1000, tol=1e-10)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dmod.LAUNCHES - before
+        gen_check(M, e, 6, "gen_shift_modes", run=label, wall_s=wall, k1_launches=launches)
+        if label in ("sparse_real_shift_bicgstab", "krylov_schur_g100") and launches == 0:
+            raise RuntimeError(f"{label} made no K1 launch")
+
+
 def run_north_star(torch, stt, dmod, dsmod, pmg, pf, A, dia64, matrix_s):
     """The north star at full width as ``scripts/tpu_northstar_100m.py:
     158-174`` runs it: the 20 smallest eigenvalues, counted with
@@ -1972,6 +2195,13 @@ def main(argv):
     phase("config5a_profile", profile_inner_solves, torch, op5a,
           "profile_config5a_inner_solves")
     del op5a
+    op4, v04, k1_config4, k1_config4_t = phase(
+        "config4_gen_sparse_g500", run_config4, torch, stt, dmod, pf, rates, k1_floor
+    )
+    phase("config4_profile", profile_config4, torch, stt, op4, v04)
+    del op4
+    phase("gen_dense_n1000", run_gen_dense, torch, stt)
+    phase("gen_shift_modes", run_gen_shift_modes, torch, stt, dmod)
     ns_op, k1_ns, k2_ns, ns_cycles, ns_solves = phase(
         "north_star", run_north_star, torch, stt, dmod, dsmod, pmg, pf, A243,
         dia243, matrix_s,
@@ -2001,6 +2231,7 @@ def main(argv):
             launches_config2=launches, launches_config3=k1_config3,
             launches_config3_full_reorth=k1_config3_full,
             launches_config5a=k1_config5a,
+            launches_config4=k1_config4, config4=k1_config4_t,
             launches_north_star=k1_ns,
             north_star_levels=[t for t in level_t if t["kernel"] == "dia_spmv"],
             k1_levels=k1_levels, launch_floor=k1_floor,

@@ -9,6 +9,10 @@ hi/lo planes of large f64 stencils); shift-invert runs its inner solves
 (multigrid, Chebyshev, MINRES, CG) and the dense Bunch-Kaufman
 factorization on the card and SuperLU on the host. The generalized
 problem ``A x = lambda B x`` runs in its five modes (``GEigsMode``).
+General (non-symmetric) matrices, real or complex, run the implicitly
+restarted Arnoldi method (``GenEigsSolver``, implicit or Krylov-Schur
+restarts) and its real- and complex-shift inversions, by LU on the card,
+SuperLU on the host or BiCGStab on the card.
 The small (ncv, ncv) projected problem runs on the host in f64, and
 small dense f64 problems go whole to a native Krylov-Schur driver on
 the host (``csrc/dense_eigs.cpp``; ``SPECTRA_TPU_DENSE_DRIVER=torch``
@@ -23,11 +27,27 @@ This package imports torch, numpy and scipy, never jax or
 
 from spectra_tpu_torch.matop.cholesky import DenseCholesky, SparseCholesky
 from spectra_tpu_torch.matop.dense import DenseGenMatProd, DenseSymMatProd
+from spectra_tpu_torch.matop.gen_embed import (
+    RealEmbeddedGenMatProd,
+    RotatedEmbeddedGenMatProd,
+)
 from spectra_tpu_torch.matop.regular_inverse import SparseRegularInverse
-from spectra_tpu_torch.matop.shift_solve import DenseSymShiftSolve, SparseSymShiftSolve
+from spectra_tpu_torch.matop.shift_solve import (
+    DenseGenComplexShiftSolve,
+    DenseGenRealShiftSolve,
+    DenseSymShiftSolve,
+    SparseGenComplexShiftSolve,
+    SparseGenRealShiftSolve,
+    SparseSymShiftSolve,
+)
 from spectra_tpu_torch.matop.sparse import SparseGenMatProd, SparseSymMatProd
 from spectra_tpu_torch.matop.sym_shift_invert import SymShiftInvert
 from spectra_tpu_torch.solvers.cheb_sym_eigs import ChebSymEigsSolver
+from spectra_tpu_torch.solvers.gen_eigs import GenEigsSolver
+from spectra_tpu_torch.solvers.gen_eigs_shift import (
+    GenEigsComplexShiftSolver,
+    GenEigsRealShiftSolver,
+)
 from spectra_tpu_torch.solvers.sym_eigs import SymEigsSolver
 from spectra_tpu_torch.solvers.sym_eigs_shift import SymEigsShiftSolver
 from spectra_tpu_torch.solvers.sym_geigs import SymGEigsSolver
@@ -41,14 +61,23 @@ __all__ = [
     "ChebSymEigsSolver",
     "CompInfo",
     "DenseCholesky",
+    "DenseGenComplexShiftSolve",
     "DenseGenMatProd",
+    "DenseGenRealShiftSolve",
     "DenseSymMatProd",
     "DenseSymShiftSolve",
     "DiaHiLoMatrix",
     "GEigsMode",
+    "GenEigsComplexShiftSolver",
+    "GenEigsRealShiftSolver",
+    "GenEigsSolver",
+    "RealEmbeddedGenMatProd",
+    "RotatedEmbeddedGenMatProd",
     "SortRule",
     "SparseCholesky",
+    "SparseGenComplexShiftSolve",
     "SparseGenMatProd",
+    "SparseGenRealShiftSolve",
     "SparseRegularInverse",
     "SparseSymMatProd",
     "SparseSymShiftSolve",

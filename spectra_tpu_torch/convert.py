@@ -44,11 +44,13 @@ def ell_from_numpy(cols, vals, n_rows, n_cols, device=None) -> EllMatrix:
 def krylov_state_from_numpy(V, H, f, beta, k, nops, device=None,
                             seed: int = 0) -> KrylovState:
     """A :class:`KrylovState`: V (m, n) and f (n,) on ``device``, H
-    (m, m) as a CPU f64 tensor, the scalars as Python numbers."""
+    (m, m) as a CPU tensor (f64, or c128 for a complex H), the scalars
+    as Python numbers."""
     device = resolve_device(device)
+    H = np.asarray(H)
     return KrylovState(
         V=_tensor(V, device),
-        H=torch.from_numpy(np.array(H, np.float64)),
+        H=torch.from_numpy(np.array(H, np.complex128 if np.iscomplexobj(H) else np.float64)),
         f=_tensor(f, device),
         beta=float(beta),
         k=int(k),

@@ -1,14 +1,17 @@
-"""Numerically stable real Givens rotations on host scalars.
+"""Numerically stable Givens rotations on host scalars.
 
-Port of :func:`spectra_tpu.linalg.givens.givens_rotation` (reference:
+Port of :mod:`spectra_tpu.linalg.givens` (reference:
 include/Spectra/LinAlg/Givens.h:150-336). For a real pair (x, y), find
 (c, s, r) with
 
     G = [ c  s ]      G^T [x]   [r]
         [-s  c ],         [y] = [0],   r = sqrt(x^2 + y^2) >= 0,
 
-i.e. c = x / r, s = -y / r. The rotations drive the replicated small
-(ncv, ncv) problem, which the port runs on the host in Python floats.
+i.e. c = x / r, s = -y / r. The complex variant follows the LAPACK
+(LAWN-150) convention of the reference (Givens.h:218-335): c real, s
+complex, ``G^H [x, y]^T = [r, 0]^T``. The rotations drive the
+replicated small (ncv, ncv) problem, which the port runs on the host in
+Python scalars.
 """
 
 import math
@@ -37,3 +40,20 @@ def givens_rotation(x: float, y: float):
     if r > 0.0:
         return x / r, -y / r, r
     return 1.0, 0.0, r
+
+
+def givens_rotation_complex(x: complex, y: complex):
+    """Complex Givens rotation (LAPACK clartg convention): ``c`` real,
+    ``s`` complex, ``c = |x| / n``, ``s = -(x/|x|) conj(y) / n`` and
+    ``r = (x/|x|) n`` with ``n = sqrt(|x|^2 + |y|^2)``. For x == 0 the
+    rotation swaps: c = 0, s = -conj(y)/|y|, r = |y|. For x = y = 0 it
+    is the identity (c=1, s=0, r=0)."""
+    x, y = complex(x), complex(y)
+    ax, ay = abs(x), abs(y)
+    n = _hypot(ax, ay)
+    if not n > 0.0:
+        return 1.0, 0j, 0j
+    if ax == 0.0:
+        return 0.0, -y.conjugate() / (ay if ay != 0.0 else 1.0), complex(ay)
+    phase = x / ax
+    return ax / n, -phase * y.conjugate() / n, phase * n

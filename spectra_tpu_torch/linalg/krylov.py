@@ -1,17 +1,19 @@
-"""Lanczos factorization: the hot loop of the symmetric solvers.
+"""Lanczos and Arnoldi factorizations: the hot loop of the solvers.
 
-Port of the Lanczos mode of :mod:`spectra_tpu.linalg.krylov`. It keeps
-the m-step factorization  A V = V H + f e_m^T  with V held ROW-MAJOR as
-an (m, n) tensor (basis vector i in row V[i]), orthonormal, H the
-m-by-m symmetric tridiagonal projection and f the residual.
+Port of :mod:`spectra_tpu.linalg.krylov`. It keeps the m-step
+factorization  A V = V H + f e_m^T  with V held ROW-MAJOR as an (m, n)
+tensor (basis vector i in row V[i]), orthonormal, H the m-by-m
+projection (symmetric tridiagonal for Lanczos, upper Hessenberg for
+Arnoldi) and f the residual.
 
 Where the work runs: every n-length tensor (V, f and the operator's
 data) stays on the operator's device. H, ``beta = ||f||`` and the
-counters live on the host: H is a CPU f64 tensor, the replicated small
-problem of the design, not a fallback. The JAX package's
-``lax.while_loop``/``fori_loop`` driver becomes a host loop: each
-data-dependent branch (the DGKS test, the breakdown test) reads one
-scalar or one (m,) coefficient vector back with ``.item()``/``.cpu()``.
+counters live on the host: H is a CPU tensor, f64 (c128 for a complex
+operator), the replicated small problem of the design, not a fallback.
+The JAX package's ``lax.while_loop``/``fori_loop`` driver becomes a
+host loop: each data-dependent branch (the DGKS test, the breakdown
+test) reads one scalar or one (m,) coefficient vector back with
+``.item()``/``.cpu()``.
 Unlike the functional reference, a step writes its new row of V and
 its column of H in place.
 
@@ -39,10 +41,15 @@ Two further modes:
     re-orthogonalization (:func:`_factorize_selective`). The recurrence
     is O(m) host arithmetic on the f64 H; only a triggered DGKS
     projection is n-length work on the device;
-  * ``"arnoldi"`` for :func:`step_once` only: one full-projection step,
-    which the thick restart uses to build its arrowhead column. The
-    Arnoldi factorization of the general solvers waits for its slice
-    (ROADMAP.md item 12).
+  * ``"arnoldi"``: full Gram-Schmidt against every basis row, the DGKS
+    loop skipped when ``||f|| > 0.717 ||h||`` (reference: Arnoldi.h:
+    232-300). The general solvers factorize with it, and the thick
+    restart builds its arrowhead column with one such step. A step
+    reads its projection column and ``||f||`` to the host together,
+    once.
+
+:func:`compress` applies an implicit restart's rotation;
+:func:`truncate_schur` the Krylov-Schur restart's truncation.
 
 The JAX package's ``split_*`` pieces, which cut a step into separately
 compiled programs for its stepped driver, have no counterpart: this
@@ -64,7 +71,7 @@ class KrylovState(NamedTuple):
     """The factorization state."""
 
     V: torch.Tensor  # (m, n) on the device, row-major; rows >= k zero
-    H: torch.Tensor  # (m, m) CPU float64
+    H: torch.Tensor  # (m, m) CPU float64 (complex128 for a complex V)
     f: torch.Tensor  # (n,) on the device
     beta: float  # ||f||
     k: int  # current subspace dimension
@@ -72,12 +79,15 @@ class KrylovState(NamedTuple):
     seed: int  # seeds the breakdown-restart generator
 
 
-def _check_mode(mode: str, allowed=("lanczos", "lanczos_selective")) -> None:
-    if mode in allowed:
-        return
-    raise NotImplementedError(
-        f"mode {mode!r} (Arnoldi) waits for its slice: ROADMAP.md item 12"
-    )
+def _check_mode(mode: str, allowed) -> None:
+    if mode not in allowed:
+        raise ValueError(f"mode {mode!r}: use one of {', '.join(allowed)}")
+
+
+def _host_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype of H for basis dtype ``dtype``: f64, or c128 for a
+    complex basis."""
+    return torch.complex128 if dtype.is_complex else torch.float64
 
 
 def _maxabs(coeffs) -> float:
@@ -119,7 +129,7 @@ def init(arnop, v0, m: int, seed: int = 0) -> KrylovState:
 
     V = torch.zeros((m, n), dtype=dtype, device=v0.device)
     V[0] = v
-    H = torch.zeros((m, m), dtype=torch.float64)
+    H = torch.zeros((m, m), dtype=_host_dtype(dtype))
     H[0, 0] = h00_h
     return KrylovState(V=V, H=H, f=f, beta=beta, k=1, nops=2, seed=seed)
 
@@ -174,7 +184,8 @@ def _reorth_loop(arnop, V, f, beta: float, H, i: int, mode: str = "lanczos"):
 
     Vp = arnop.ortho_basis(V)
     Vf = arnop.adjoint_product(Vp, f)
-    coeffs = Vf.tolist()
+    Vf_host = Vf.cpu()
+    coeffs = Vf_host.tolist()
     for _ in range(5):
         if not _maxabs(coeffs) > eps * beta:
             break
@@ -189,11 +200,17 @@ def _reorth_loop(arnop, V, f, beta: float, H, i: int, mode: str = "lanczos"):
         else:
             # Full column correction h <- h + Vf (entries past i are zero
             # by the zero-row invariant of V).
-            H[:, i] += Vf.to("cpu", torch.float64)
-        beta = arnop.norm(f).item()
+            H[:, i] += Vf_host.to(H.dtype)
         Vf = arnop.adjoint_product(Vp, f)
-        coeffs = Vf.tolist()
+        Vf_host, beta = _read_with_norm(Vf, arnop.norm(f))
+        coeffs = Vf_host.tolist()
     return f, beta
+
+
+def _read_with_norm(x, norm):
+    """``(x on the host, float(norm))`` in one device-to-host read."""
+    host = torch.cat([x, norm.reshape(1).to(x.dtype)]).cpu()
+    return host[:-1], host[-1].real.item()
 
 
 def _lanczos_coeffs(arnop, V, H, v, w, h_sub: float, i: int):
@@ -220,10 +237,10 @@ def _post_op(arnop, V, H, v, w, h_sub: float, i: int, mode: str = "lanczos"):
         # loop is skipped when ||f|| > 0.717 ||h|| (Arnoldi.h:257).
         h = arnop.adjoint_product(V, w)
         f = w - basis_apply(V, h)
-        h_host = h.to("cpu", torch.float64)
+        h_host, beta = _read_with_norm(h, arnop.norm(f))
+        h_host = h_host.to(H.dtype)
         H[:, i] = h_host
         H[i, i - 1] = h_sub
-        beta = arnop.norm(f).item()
         if not beta > 0.717 * torch.linalg.vector_norm(h_host).item():
             f, beta = _reorth_loop(arnop, V, f, beta, H, i, mode)
     return _deflate_residual(arnop, f, beta)
@@ -382,12 +399,12 @@ def step_once(arnop, state: KrylovState, i: int, mode: str) -> KrylovState:
 
 def factorize_from(arnop, state: KrylovState, from_k, mode: str) -> KrylovState:
     """Extend the factorization from ``from_k`` steps to the full m."""
-    _check_mode(mode)
+    _check_mode(mode, ("lanczos", "lanczos_selective", "arnoldi"))
     if mode == "lanczos_selective":
         return _factorize_selective(arnop, state, from_k)
     m = state.V.shape[0]
     for i in range(max(int(from_k), 1), m):
-        state = _step(arnop, state, i)
+        state = _step(arnop, state, i, mode)
     return state._replace(k=m)
 
 
@@ -415,4 +432,28 @@ def compress(arnop, state: KrylovState, Q, H_new, k_new: int) -> KrylovState:
     return KrylovState(
         V=V_new, H=H_masked, f=f_new, beta=beta_new, k=k_new, nops=nops,
         seed=seed,
+    )
+
+
+def truncate_schur(arnop, state: KrylovState, U, T_new, k_new: int) -> KrylovState:
+    """Krylov-Schur truncation: V <- V U (the first ``k_new`` columns
+    kept), H <- the leading k x k block of the ordered quasi-triangular
+    T, the residual f UNCHANGED.
+
+    Rotating into an ordered Schur basis leaves the residual invariant:
+    ``A (V U_k) = (V U_k) T_k + f (e_m^T U_k)``. The spike row
+    ``e_m^T U_k`` replaces the Arnoldi coupling ``beta e_k^T`` and is
+    written into H's row ``k_new`` by the caller after re-expansion
+    (the first step of :func:`factorize_from` overwrites
+    ``H[k, k-1]``). Stewart's Krylov-Schur restart; the reference
+    restarts only by shifted-QR sweeps (GenEigsBase.h:44-140)."""
+    V, _, f, beta, _, nops, seed = state
+    # Masked rotation (see compress): no third (m, n) buffer.
+    Um = U.clone()
+    Um[:, k_new:] = 0.0
+    V_new = basis_apply_block(V, Um.to(V.device, V.dtype))
+    H_masked = torch.zeros_like(state.H)
+    H_masked[:k_new, :k_new] = T_new[:k_new, :k_new]
+    return KrylovState(
+        V=V_new, H=H_masked, f=f, beta=beta, k=k_new, nops=nops, seed=seed,
     )

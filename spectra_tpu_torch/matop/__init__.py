@@ -1,24 +1,42 @@
 """Operators: dense and sparse matrix products, the Krylov inner-product
-seam, the Chebyshev filter, the shift-solves, and the Cholesky,
+seam, the Chebyshev filter, the shift-solves (symmetric and general),
+the real embedding of complex matrices, and the Cholesky,
 regular-inverse and shift-invert operators of generalized problems."""
 
 from spectra_tpu_torch.matop.arnoldi_op import ArnoldiOp, IdentityBOp
 from spectra_tpu_torch.matop.cholesky import DenseCholesky, SparseCholesky
 from spectra_tpu_torch.matop.dense import DenseGenMatProd, DenseSymMatProd
+from spectra_tpu_torch.matop.gen_embed import (
+    RealEmbeddedGenMatProd,
+    RotatedEmbeddedGenMatProd,
+)
 from spectra_tpu_torch.matop.regular_inverse import SparseRegularInverse
-from spectra_tpu_torch.matop.shift_solve import DenseSymShiftSolve, SparseSymShiftSolve
+from spectra_tpu_torch.matop.shift_solve import (
+    DenseGenComplexShiftSolve,
+    DenseGenRealShiftSolve,
+    DenseSymShiftSolve,
+    SparseGenComplexShiftSolve,
+    SparseGenRealShiftSolve,
+    SparseSymShiftSolve,
+)
 from spectra_tpu_torch.matop.sparse import SparseGenMatProd, SparseSymMatProd
 from spectra_tpu_torch.matop.sym_shift_invert import SymShiftInvert
 
 __all__ = [
     "ArnoldiOp",
     "DenseCholesky",
+    "DenseGenComplexShiftSolve",
     "DenseGenMatProd",
+    "DenseGenRealShiftSolve",
     "DenseSymMatProd",
     "DenseSymShiftSolve",
     "IdentityBOp",
+    "RealEmbeddedGenMatProd",
+    "RotatedEmbeddedGenMatProd",
     "SparseCholesky",
+    "SparseGenComplexShiftSolve",
     "SparseGenMatProd",
+    "SparseGenRealShiftSolve",
     "SparseRegularInverse",
     "SparseSymMatProd",
     "SparseSymShiftSolve",

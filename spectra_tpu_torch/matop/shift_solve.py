@@ -1,23 +1,35 @@
 """Shift-solve operators: ``y = (A - sigma I)^{-1} x``.
 
-Port of the symmetric part of :mod:`spectra_tpu.matop.shift_solve`
-(reference: include/Spectra/MatOp/DenseSymShiftSolve.h:33-110,
-SparseSymShiftSolve.h). Following the reference's API, an operator is
-created unshifted and ``set_shift(sigma)`` builds the solver for
-``A - sigma I``, returning a new operator.
+Port of :mod:`spectra_tpu.matop.shift_solve` (reference:
+include/Spectra/MatOp/DenseSymShiftSolve.h:33-110,
+DenseGenRealShiftSolve.h:29-104, DenseGenComplexShiftSolve.h:30-118,
+SparseSymShiftSolve.h, SparseGenRealShiftSolve.h,
+SparseGenComplexShiftSolve.h:32-124). Following the reference's API,
+an operator is created unshifted and ``set_shift`` builds the solver
+for ``A - sigma I``, returning a new operator.
 
 :class:`DenseSymShiftSolve` factors the dense matrix with the
 Bunch-Kaufman LDL^T of :mod:`spectra_tpu_torch.linalg.bkldlt` on the
 matrix's device; each ``perform_op`` is two triangular solves there.
+:class:`DenseGenRealShiftSolve` and :class:`DenseGenComplexShiftSolve`
+factor by partial-pivot LU (``torch.linalg.lu_factor_ex``) on the
+matrix's device, as the JAX package does with
+``jax.scipy.linalg.lu_factor``; the complex-shift operator returns the
+real part of a complex solve (the reference's real-part trick).
 
-Methods of :class:`SparseSymShiftSolve`:
+Methods of the sparse shift-solves (:class:`SparseSymShiftSolve`,
+:class:`SparseGenRealShiftSolve`, :class:`SparseGenComplexShiftSolve`):
 
 * ``"splu"``: one host SuperLU factorization of ``A - sigma I`` (scipy);
   each ``perform_op`` copies the right-hand side to the host, solves and
-  copies the result back (the JAX package bridges the same call with
-  ``jax.pure_callback``).
+  copies the result back to its device (the JAX package bridges the
+  same call with ``jax.pure_callback``).
 * ``"cg"``: conjugate gradients in plain torch, with
   ``jax.scipy.sparse.linalg.cg``'s stopping rule (:func:`cg`).
+* ``"bicgstab"``: BiCGStab in plain torch, with the recurrence and the
+  stopping rule of ``jax.scipy.sparse.linalg.bicgstab``
+  (:func:`bicgstab`); the solve of the general (non-symmetric) shifted
+  systems on the device.
 * ``"minres"``: :mod:`spectra_tpu_torch.linalg.minres`, optionally
   preconditioned (``precond="jacobi"``/``"cheb"``,
   :mod:`spectra_tpu_torch.matop.precond`). On a grid stencil it first
@@ -29,13 +41,16 @@ Methods of :class:`SparseSymShiftSolve`:
   trial-validated at build time, MINRES when it does not validate.
 * ``"auto"``: ``"splu"`` (the port can always reach the host).
 
-The iterative methods keep their matrix on the device (DIA, hi/lo DIA or
-ELL, :func:`dia_device_from_scipy`), couple their tolerance to the outer
-one (:func:`couple_inner_tolerance`), and NaN-poison a solve whose
-backward error is too large (:func:`_poison_if_unconverged`).
+"cg", "minres", "cheb" and "mg" need a symmetric shifted matrix, so the
+general shift-solves take "splu" and "bicgstab" only.
 
-The Hermitian and general shift-solves wait for their slices
-(ROADMAP.md items 12 and 14).
+The iterative methods keep their matrix on the device (DIA, hi/lo DIA or
+ELL, :func:`dia_device_from_scipy`; a complex matrix is ELL), couple
+their tolerance to the outer one (:func:`couple_inner_tolerance`), and
+NaN-poison a solve whose backward error is too large
+(:func:`_poison_if_unconverged`).
+
+The Hermitian shift-solve waits for its slice (ROADMAP.md item 14).
 """
 
 import dataclasses
@@ -96,6 +111,90 @@ class DenseSymShiftSolve:
 
     def perform_op(self, x):
         return bkldlt.solve(self.factors, x)
+
+
+def _lu_factor(M):
+    """Partial-pivot LU of M on its device; a zero or non-finite pivot
+    raises :class:`ShiftFactorizationError`."""
+    lu, piv, _ = torch.linalg.lu_factor_ex(M)
+    if bool((lu.diagonal() == 0).any() | ~torch.isfinite(lu).all()):
+        raise ShiftFactorizationError(
+            "factorization failed: sigma is an eigenvalue of the matrix"
+        )
+    return lu, piv
+
+
+def _lu_solve(lu, piv, x):
+    """``M^{-1} x`` for a vector or a block of columns ``x``."""
+    if x.ndim == 1:
+        return torch.linalg.lu_solve(lu, piv, x.unsqueeze(-1)).squeeze(-1)
+    return torch.linalg.lu_solve(lu, piv, x)
+
+
+class _DenseLUShiftBase:
+    """The dense matrix, its LU factors after ``set_shift``, and the
+    operator accessors of the two dense general shift-solves."""
+
+    @classmethod
+    def create(cls, mat, device=None):
+        return cls(mat=_as_tensor(mat, device))
+
+    @property
+    def dtype(self):
+        return self.mat.dtype  # real for the complex shift: Re(solve)
+
+    @property
+    def device(self):
+        return self.mat.device
+
+    def rows(self) -> int:
+        return self.mat.shape[0]
+
+    def cols(self) -> int:
+        return self.mat.shape[1]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DenseGenRealShiftSolve(_DenseLUShiftBase):
+    """``(A - sigma I)^{-1} x`` for a dense general A by partial-pivot LU
+    on the matrix's device (reference: DenseGenRealShiftSolve.h:47).
+    ``create(mat, device=...)``."""
+
+    mat: torch.Tensor
+    lu: object = None
+    piv: object = None
+
+    def set_shift(self, sigma):
+        n = self.mat.shape[0]
+        eye = torch.eye(n, dtype=self.mat.dtype, device=self.mat.device)
+        lu, piv = _lu_factor(self.mat - sigma * eye)
+        return DenseGenRealShiftSolve(mat=self.mat, lu=lu, piv=piv)
+
+    def perform_op(self, x):
+        return _lu_solve(self.lu, self.piv, x)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DenseGenComplexShiftSolve(_DenseLUShiftBase):
+    """``Re[(A - (sr + si i) I)^{-1} x]`` for a dense general real A: the
+    real-part operator of the complex-shift solver (reference:
+    DenseGenComplexShiftSolve.h:50-54,108), its complex LU on the
+    matrix's device. ``create(mat, device=...)``."""
+
+    mat: torch.Tensor
+    lu: object = None
+    piv: object = None
+
+    def set_shift(self, sigmar, sigmai):
+        n = self.mat.shape[0]
+        cdtype = self.mat.dtype.to_complex()
+        eye = torch.eye(n, dtype=cdtype, device=self.mat.device)
+        lu, piv = _lu_factor(self.mat.to(cdtype) - complex(sigmar, sigmai) * eye)
+        return DenseGenComplexShiftSolve(mat=self.mat, lu=lu, piv=piv)
+
+    def perform_op(self, x):
+        y = _lu_solve(self.lu, self.piv, x.to(self.lu.dtype))
+        return y.real.contiguous()
 
 
 #: Inner/outer tolerance coupling: the inner solve targets a relative
@@ -183,6 +282,46 @@ def cg(matvec, b, tol=1e-5, maxiter=None):
     return x
 
 
+def bicgstab(matvec, b, tol=1e-5, maxiter=None):
+    """BiCGStab from x0 = 0 with the recurrence and the stopping rule of
+    ``jax.scipy.sparse.linalg.bicgstab`` (``atol=0``, no
+    preconditioner): run while ``r.r > tol^2 b.b``, fewer than
+    ``maxiter`` (default 10 n) steps, and no breakdown (``rho``,
+    ``alpha`` or ``omega`` exactly 0 ends the loop after that step's
+    update, as the JAX package's negative step count does). Each step
+    applies the operator twice and reads ``r.r`` and the breakdown flag
+    to the host in one read. Real or complex."""
+    if maxiter is None:
+        maxiter = 10 * b.shape[0]
+    atol2 = tol * tol * float(vec_dot(b, b).real)
+    x = torch.zeros_like(b)
+    r = b - matvec(x)
+    rhat = p = q = r
+    alpha = omega = rho = torch.ones((), dtype=b.dtype, device=b.device)
+    rs = float(vec_dot(r, r).real)
+    k = 0
+    while rs > atol2 and k < maxiter:
+        rho_ = vec_dot(rhat, r)
+        beta = rho_ / rho * alpha / omega
+        p = r + beta * (p - omega * q)
+        q = matvec(p)
+        alpha_ = rho_ / vec_dot(rhat, q)
+        s = r - alpha_ * q
+        exit_early = vec_dot(s, s).real < atol2
+        t = matvec(s)
+        omega_ = vec_dot(t, s) / vec_dot(t, t)
+        x = torch.where(exit_early, x + alpha_ * p, x + (alpha_ * p + omega_ * s))
+        r = torch.where(exit_early, s, s - omega_ * t)
+        rho, alpha, omega = rho_, alpha_, omega_
+        broke = (omega_ == 0) | (alpha_ == 0) | (rho_ == 0)
+        rr = vec_dot(r, r).real
+        rs, stop = torch.stack([rr, broke.to(rr.dtype)]).tolist()
+        if stop:
+            break
+        k += 1
+    return x
+
+
 class _HostLUSolver:
     """A scipy SuperLU factor; solves on the host and returns the result
     on the right-hand side's device."""
@@ -204,10 +343,12 @@ class SparseShiftSolveBase:
     """The sparse ``(A - sigma I)^{-1}`` operator.
 
     ``method="splu"``: ``solver`` holds the host factorization.
-    ``method="cg"``/``"minres"``/``"cheb"``/``"mg"``: ``shifted`` holds
-    the device matrix of ``A - sigma I`` and the solve is an inner
-    iteration, its tolerance ``inner_rtol`` (``None`` until a driver
-    couples it; ``inner_rtol_user`` when the user pinned it).
+    ``method="cg"``/``"bicgstab"``/``"minres"``/``"cheb"``/``"mg"``:
+    ``shifted`` holds the device matrix of ``A - sigma I`` and the solve
+    is an inner iteration, its tolerance ``inner_rtol`` (``None`` until a
+    driver couples it; ``inner_rtol_user`` when the user pinned it).
+    ``out_real``: ``perform_op`` returns the real part of the (complex)
+    solve, the complex-shift solver's operator.
     ``op_norm`` is the Gershgorin bound of ``shifted``, computed once.
     ``build_s`` holds the host seconds of the build's parts (``dia``:
     the device matrix, ``hierarchy`` and ``trial``: the multigrid
@@ -218,6 +359,7 @@ class SparseShiftSolveBase:
     solver: object
     n: int
     method: str
+    out_real: bool = False
     inner_rtol: object = None
     precond: str = "none"
     cheb_degree: int = 16
@@ -234,8 +376,10 @@ class SparseShiftSolveBase:
     @property
     def dtype(self):
         if self.method == "splu":
-            return torch.from_numpy(np.zeros(0, self.solver.np_dtype)).dtype
-        return self.shifted.dtype
+            base = torch.from_numpy(np.zeros(0, self.solver.np_dtype)).dtype
+        else:
+            base = self.shifted.dtype
+        return base.to_real() if self.out_real and base.is_complex else base
 
     @property
     def device(self):
@@ -248,9 +392,8 @@ class SparseShiftSolveBase:
         return self.n
 
     def perform_op(self, x):
-        if self.method == "splu":
-            return self.solver(x)
-        return self._iterative_solve(x)
+        y = self.solver(x) if self.method == "splu" else self._iterative_solve(x)
+        return y.real.contiguous() if self.out_real else y
 
     def _iterative_solve(self, x):
         mv = self.shifted.matvec
@@ -295,6 +438,8 @@ class SparseShiftSolveBase:
             y = recover(y)
         elif self.method == "cg":
             y = cg(mv, b, tol=rtol, maxiter=maxiter)
+        elif self.method == "bicgstab":
+            y = bicgstab(mv, b, tol=rtol, maxiter=maxiter)
         else:
             raise ValueError(f"unknown shift-solve method {self.method!r}")
         return _poison_if_unconverged(
@@ -302,28 +447,32 @@ class SparseShiftSolveBase:
         )
 
 
-def _resolve_sparse_method(method: str) -> str:
+def _resolve_sparse_method(method: str, symmetric: bool = True) -> str:
     """``"auto"`` is the host SuperLU, as in the JAX package wherever
-    its runtime has host callbacks; the port can always reach the
-    host. ``"bicgstab"`` raises, naming its slice."""
+    its runtime has host callbacks; the port can always reach the host.
+    A ``symmetric`` shifted matrix takes every method; a general one
+    only ``"splu"`` and ``"bicgstab"``, since CG, MINRES, the Chebyshev
+    iteration and the multigrid smoother assume symmetry."""
     if method == "auto":
         return "splu"
-    if method not in ("splu", "cg", "minres", "cheb", "mg"):
+    allowed = (
+        ("splu", "cg", "bicgstab", "minres", "cheb", "mg") if symmetric
+        else ("splu", "bicgstab")
+    )
+    if method not in allowed:
         raise ValueError(
-            f"unknown method {method!r}: use 'auto', 'splu', 'cg', "
-            "'minres', 'cheb' or 'mg' ('bicgstab' comes with the general "
-            "shift-solves, ROADMAP.md item 12)"
+            f"method {method!r}: use 'auto' or one of {', '.join(allowed)}"
         )
     return method
 
 
 def _build_sparse_shift(csr, sigma, method, precond="none", inner_rtol=None,
                         cheb_degree=16, cheb_interval=None, grid_dims=None,
-                        device=None):
+                        device=None, out_real=False, symmetric=True):
     import scipy.sparse as sps
     import scipy.sparse.linalg as spla
 
-    method = _resolve_sparse_method(method)
+    method = _resolve_sparse_method(method, symmetric)
     device = resolve_device(device)
     n = csr.shape[0]
     shifted = (csr - sigma * sps.eye(n, dtype=csr.dtype, format="csr")).tocsr()
@@ -336,12 +485,12 @@ def _build_sparse_shift(csr, sigma, method, precond="none", inner_rtol=None,
             ) from err
         return SparseShiftSolveBase(
             shifted=None, solver=_HostLUSolver(lu, n, shifted.dtype), n=n,
-            method="splu", host_device=device,
+            method="splu", out_real=out_real, host_device=device,
         )
     return build_shifted_iterative(
         shifted, method, precond=precond, inner_rtol=inner_rtol,
         cheb_degree=cheb_degree, cheb_interval=cheb_interval,
-        grid_dims=grid_dims, device=device,
+        grid_dims=grid_dims, device=device, out_real=out_real,
     )
 
 
@@ -420,7 +569,7 @@ def _maybe_build_mg(shifted_csr, device_mat, op_norm, grid_dims=None,
 
 def build_shifted_iterative(shifted, method, precond="none", inner_rtol=None,
                             cheb_degree=16, cheb_interval=None,
-                            grid_dims=None, device=None):
+                            grid_dims=None, device=None, out_real=False):
     """Iterative ``shifted^{-1}`` operator over a pre-shifted host CSR:
     device format routing, multigrid upgrade, Chebyshev interval
     learning, tolerance coupling and NaN poisoning."""
@@ -480,7 +629,7 @@ def build_shifted_iterative(shifted, method, precond="none", inner_rtol=None,
         cheb_interval = (float(alpha_learned), beta0)
         times["interval"] = time.perf_counter() - t0
     return SparseShiftSolveBase(
-        shifted=device_mat, solver=None, n=n, method=method,
+        shifted=device_mat, solver=None, n=n, method=method, out_real=out_real,
         inner_rtol=inner_rtol, precond=precond, cheb_degree=cheb_degree,
         cheb_interval=cheb_interval, inner_rtol_user=inner_rtol is not None,
         mg=mg_state, op_norm=op_norm, build_s=times,
@@ -552,3 +701,50 @@ class SparseSymShiftSolve:
             a, b = op.cheb_interval
             self._learned_interval = (float(a), float(b), float(np.real(sigma)))
         return op
+
+
+class SparseGenRealShiftSolve:
+    """``(A - sigma I)^{-1} x`` for a sparse general real A (reference:
+    SparseGenRealShiftSolve.h:49). ``create(csr, method, device=...)``
+    with ``method`` ``"auto"``/``"splu"`` (host SuperLU) or
+    ``"bicgstab"`` (BiCGStab on the device, the DIA kernel for a banded
+    matrix)."""
+
+    def __init__(self, csr, method: str = "auto", device=None):
+        self._csr = csr.tocsr()
+        self._method = method
+        self._device = device
+
+    @property
+    def dtype(self):
+        return torch.from_numpy(np.zeros(0, self._csr.dtype)).dtype
+
+    def rows(self) -> int:
+        return self._csr.shape[0]
+
+    def cols(self) -> int:
+        return self._csr.shape[1]
+
+    @classmethod
+    def create(cls, csr, method: str = "auto", device=None):
+        return cls(csr, method, device)
+
+    def set_shift(self, sigma):
+        return _build_sparse_shift(
+            self._csr, sigma, self._method, device=self._device, symmetric=False
+        )
+
+
+class SparseGenComplexShiftSolve(SparseGenRealShiftSolve):
+    """``Re[(A - (sr + si i) I)^{-1} x]`` for a sparse general real A
+    (reference: SparseGenComplexShiftSolve.h:52-56,114): the complex
+    shifted matrix is factored by a complex SuperLU on the host, or
+    solved by BiCGStab on the device (ELL storage); the result is real,
+    on the operand's device."""
+
+    def set_shift(self, sigmar, sigmai):
+        csr_c = self._csr.astype(np.result_type(self._csr.dtype, np.complex64))
+        return _build_sparse_shift(
+            csr_c, complex(sigmar, sigmai), self._method, device=self._device,
+            out_real=True, symmetric=False,
+        )

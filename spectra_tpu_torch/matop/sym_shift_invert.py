@@ -11,13 +11,12 @@ SymShiftInvertHelper (SymShiftInvert.h:26-93):
 * either dense: the dense ``A - sigma B`` is factored by the
   Bunch-Kaufman LDL^T (:mod:`spectra_tpu_torch.linalg.bkldlt`) on the
   device, where the solves run too;
-* ``method`` in ``"cg"``, ``"minres"``, ``"cheb"``, ``"mg"``: the
-  iterative solves of
+* ``method`` in ``"cg"``, ``"minres"``, ``"cheb"``, ``"bicgstab"``,
+  ``"mg"``: the iterative solves of
   :func:`~spectra_tpu_torch.matop.shift_solve.build_shifted_iterative`
   on the device (format routing, multigrid upgrade, tolerance coupling,
   NaN poisoning). ``"cg"`` maps to MINRES, since ``A - sigma B`` is
   symmetric indefinite in general; ``"cheb"`` needs it SPD.
-  ``"bicgstab"`` waits for ROADMAP.md item 12.
 
 ``set_shift`` returns a new operator.
 """
@@ -142,7 +141,7 @@ class SymShiftInvert:
             method = "auto"
         if method is not None:
             method = _resolve_sparse_method(method)
-        if method in ("cg", "minres", "cheb", "mg"):
+        if method in ("cg", "minres", "cheb", "bicgstab", "mg"):
             if not _is_scipy_sparse(shifted):
                 shifted = sps.csr_matrix(shifted)
             return build_shifted_iterative(

@@ -1,4 +1,4 @@
-"""Routing: small dense f64 symmetric problems to the native driver.
+"""Routing: small dense f64 problems to the native driver.
 
 Port of :mod:`spectra_tpu.solvers._native_dense` (:51-130). A dense
 solve at n in the hundreds or thousands is bound by the per-operation
@@ -14,11 +14,13 @@ deflated round of ``compute_locked`` (the driver has no deflation).
 ``native`` (also above n = 8192) or ``torch`` (the IRLM on the
 operator's device, the JAX package's ``jax``).
 
+``sym`` picks the symmetric leg (an ``IRLMResult``) or the general
+one (an ``IRAMResult`` with complex values and vectors).
+
 A build failure raises (:func:`~spectra_tpu_torch.native.dense_eigs.load`).
 A numerical failure of the driver (return codes -1 to -5) is never
 silent: it prints one line to stderr, adds one to :data:`FALLBACKS`,
-and the solve runs again on the IRLM, as in the reference. The general
-(non-symmetric) leg waits for ROADMAP.md item 12.
+and the solve runs again on the IRLM or IRAM, as in the reference.
 """
 
 import os
@@ -33,7 +35,7 @@ from spectra_tpu_torch.util.selection import SortRule, argsort_np
 #: Larger problems stay on the IRLM unless the driver is ``native``.
 _MAX_N = 8192
 
-#: Native solves that failed numerically and ran again on the IRLM.
+#: Native solves that failed numerically and ran again on the IRLM/IRAM.
 FALLBACKS = 0
 
 _MISSING = object()
@@ -66,7 +68,7 @@ def _cached_mat(solver):
     return mat
 
 
-def eligible(solver) -> bool:
+def eligible(solver, sym: bool = True) -> bool:
     mode = driver()
     if mode == "torch":
         return False
@@ -86,13 +88,13 @@ def eligible(solver) -> bool:
     return mat.shape[0] <= _MAX_N or mode == "native"
 
 
-def compute(solver, selection: SortRule, maxit, tol, sorting):
-    """Run the native driver; returns an ``IRLMResult`` with the
-    eigenvectors on the operator's device, or None after a numerical
-    failure (the caller then runs the IRLM)."""
+def compute(solver, sym: bool, selection: SortRule, maxit, tol, sorting):
+    """Run the native driver; returns an ``IRLMResult`` (``sym``) or an
+    ``IRAMResult`` with the eigenvectors on the operator's device, or
+    None after a numerical failure (the caller then runs the IRLM or
+    IRAM)."""
     global FALLBACKS
     from spectra_tpu_torch.native import dense_eigs as nd
-    from spectra_tpu_torch.solvers._herm_core import IRLMResult
 
     mat = _cached_mat(solver)
     v0 = solver._v0_host
@@ -100,31 +102,39 @@ def compute(solver, selection: SortRule, maxit, tol, sorting):
         v0 = solver._v0.detach().cpu().numpy()
     nev = solver._nev
     rc, out = nd.dense_eigs(
-        mat, nev, solver._ncv, selection.value, True, float(tol), int(maxit),
+        mat, nev, solver._ncv, selection.value, sym, float(tol), int(maxit),
         np.asarray(v0, np.float64),
     )
     if out is None:
         FALLBACKS += 1
         print(
             f"[native dense driver] return code {rc}: the solve runs again "
-            "on the IRLM",
+            f"on the {'IRLM' if sym else 'IRAM'}",
             file=sys.stderr,
         )
         return None
-    values = out["values"].real
-    vectors = out["vectors"].real
+    values, vectors = out["values"], out["vectors"]
+    if sym:
+        values, vectors = values.real, vectors.real
     conv = out["ritz_est"] < float(tol) * np.maximum(
         dtypes.eps23(torch.float64), np.abs(values)
     )
     ind = argsort_np(sorting, values)
+    values, vectors, conv = values[ind], vectors[:, ind], conv[ind]
     device = solver._device
-    return IRLMResult(
-        values=torch.from_numpy(values[ind].copy()),
-        vectors_small=torch.eye(nev, dtype=torch.float64),
-        conv=torch.from_numpy(conv[ind].copy()),
-        nconv=out["nconv"],
-        niter=out["niter"],
-        nops=out["nops"],
-        V=torch.from_numpy(vectors[:, ind].T.copy()).to(device),
-        f=torch.zeros(mat.shape[0], dtype=torch.float64, device=device),
+    V = torch.from_numpy(vectors.T.copy()).to(device)
+    f = torch.zeros(mat.shape[0], dtype=V.dtype, device=device)
+    if sym:
+        from spectra_tpu_torch.solvers._herm_core import IRLMResult
+
+        return IRLMResult(
+            values=torch.from_numpy(values), vectors_small=torch.eye(nev, dtype=torch.float64),
+            conv=torch.from_numpy(conv), nconv=out["nconv"], niter=out["niter"],
+            nops=out["nops"], V=V, f=f,
+        )
+    from spectra_tpu_torch.solvers._gen_core import IRAMResult
+
+    return IRAMResult(
+        values=values, vectors_small=np.eye(nev, dtype=np.complex128), conv=conv,
+        nconv=out["nconv"], niter=out["niter"], nops=out["nops"], V=V, f=f,
     )

@@ -247,8 +247,8 @@ class HermEigsBase:
         if type(self)._mode == "lanczos":
             from spectra_tpu_torch.solvers import _native_dense
 
-            if _native_dense.eligible(self):
-                res = _native_dense.compute(self, selection, maxit, tol, sorting)
+            if _native_dense.eligible(self, sym=True):
+                res = _native_dense.compute(self, True, selection, maxit, tol, sorting)
                 if res is not None:
                     return self._finish_result(res)
         fixed = dict(

@@ -462,10 +462,11 @@ def dia_device_from_scipy(sp_mat, dtype=None, device=None):
 
 def dia_suitability(sp_mat, max_diags: int = 32) -> bool:
     """True when the matrix is banded enough that DIA beats ELL: few
-    distinct diagonals and low fill overhead."""
+    distinct diagonals and low fill overhead. A complex matrix is never
+    DIA: the kernel (``csrc/dia_spmv.cu``) takes f32 and f64."""
     csr = sp_mat.tocsr()
     coo = csr.tocoo()
-    if coo.nnz == 0:
+    if coo.nnz == 0 or np.iscomplexobj(csr.data):
         return False
     diags = np.unique(coo.col - coo.row)
     if len(diags) > max_diags:

@@ -399,3 +399,87 @@ def test_generalized_shift_invert_on_card(cuda):
     np.testing.assert_allclose(np.sort(e.eigenvalues()), want, rtol=1e-10, atol=0)
     U = e.eigenvectors().cpu().numpy()
     assert np.abs(A @ U - (B @ U) * e.eigenvalues()).max() < 1e-9
+
+
+def _gen_pair(n, complex_, dense_driver, monkeypatch):
+    """``GenEigsSolver`` on the same dense general matrix on the card and
+    on the CPU (the IRAM: ``SPECTRA_TPU_DENSE_DRIVER=torch``)."""
+    import spectra_tpu_torch as stt
+
+    monkeypatch.setenv("SPECTRA_TPU_DENSE_DRIVER", dense_driver)
+    rng = np.random.RandomState(123)
+    A = rng.uniform(size=(n, n)) - 0.5
+    if complex_:
+        A = A + 1j * (rng.uniform(size=(n, n)) - 0.5)
+    out = []
+    for device in ("cuda", "cpu"):
+        e = stt.GenEigsSolver(stt.DenseGenMatProd.create(A, device=device), nev=6, ncv=20)
+        e.init()
+        e.compute(stt.SortRule.LargestMagn)
+        out.append(e)
+    return A, out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("complex_", [False, True], ids=["real", "complex"])
+def test_gen_eigs_on_card_matches_cpu(cuda, monkeypatch, complex_):
+    """The IRAM on the card against the same call on the CPU: nconv,
+    info and the values (1e-10); V and the eigenvectors stay on the
+    card, H on the host."""
+    A, (card, cpu) = _gen_pair(200, complex_, "torch", monkeypatch)
+    assert card.info() == cpu.info() and card.info().name == "Successful"
+    np.testing.assert_allclose(card.eigenvalues(), cpu.eigenvalues(), rtol=0, atol=1e-10)
+    U = card.eigenvectors()
+    assert U.device.type == "cuda" and U.is_complex()
+    U = U.cpu().numpy()
+    assert np.abs(A @ U - U * card.eigenvalues()[None, :]).max() < 1e-9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("complex_", [False, True], ids=["real", "complex"])
+def test_dense_lu_shift_solve_on_card_matches_cpu(cuda, complex_):
+    """The dense LU shift-solves factor and solve on the card, against the
+    CPU within 1e-12 relative."""
+    import spectra_tpu_torch as stt
+
+    A = np.random.default_rng(4).uniform(size=(300, 300)) - 0.5
+    b = torch.from_numpy(np.random.default_rng(5).normal(size=300))
+    cls = stt.DenseGenComplexShiftSolve if complex_ else stt.DenseGenRealShiftSolve
+    shift = (0.4, 0.7) if complex_ else (0.4,)
+    card = cls.create(A, device="cuda").set_shift(*shift)
+    cpu = cls.create(A, device="cpu").set_shift(*shift)
+    assert card.lu.device.type == "cuda"
+    y_card = card.perform_op(b.cuda())
+    assert y_card.device.type == "cuda" and y_card.dtype == torch.float64
+    y_cpu = cpu.perform_op(b)
+    assert (y_card.cpu() - y_cpu).abs().max() <= 1e-12 * y_cpu.abs().max()
+
+
+@pytest.mark.cuda
+def test_bicgstab_on_dia_operator_on_card(cuda):
+    """BiCGStab on config #4's operator at g=64 shifted by 0: the shifted
+    matrix is a DiaMatrix on the card, every SpMV one K1 launch, the
+    residual within the coupled 1e-12 relative, and the solve agrees
+    with the CPU's within 1e-8 relative."""
+    import spectra_tpu_torch as stt
+
+    g = 64
+    lap1 = sps.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(g, g))
+    upw1 = sps.diags([-1.0, 1.0], [-1, 0], shape=(g, g))
+    A = (sps.kron(sps.eye(g), lap1) + sps.kron(lap1, sps.eye(g))
+         + 0.3 * sps.kron(sps.eye(g), upw1)).tocsr()
+    b = torch.from_numpy(np.random.default_rng(6).normal(size=g * g))
+    card = stt.SparseGenRealShiftSolve.create(A, method="bicgstab").set_shift(0.0)
+    cpu = stt.SparseGenRealShiftSolve.create(A, method="bicgstab", device="cpu").set_shift(0.0)
+    assert isinstance(card.shifted, pf.DiaMatrix) and card.shifted.device.type == "cuda"
+    before = dmod.LAUNCHES
+    y = card.perform_op(b.cuda())
+    torch.cuda.synchronize()
+    assert dmod.LAUNCHES - before >= 3
+    y_cpu = cpu.perform_op(b)
+    assert torch.isfinite(y).all()
+    # both solves stop at a relative residual of 1e-12; the system's
+    # condition number (about 2e3) bounds how far apart they may be
+    assert (y.cpu() - y_cpu).abs().max() <= 1e-8 * y_cpu.abs().max()
+    r = A @ y.cpu().numpy() - b.numpy()
+    assert np.linalg.norm(r) <= 1e-10 * np.linalg.norm(b.numpy())

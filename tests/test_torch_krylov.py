@@ -221,15 +221,20 @@ def test_givens_matches_jax(x, y):
 
 
 def test_other_modes_wait_for_their_slice(ops):
-    """The Arnoldi factorization of the general solvers waits for its
-    slice; the selective mode and the single full-projection step (the
-    thick restart's arrow column) are in."""
+    """Every mode of the JAX package is in: the Arnoldi factorization of
+    the general solvers (which ``tests/test_torch_gen_eigs.py`` holds to
+    the JAX package), the selective mode and the single full-projection
+    step; the selective mode has no single step, and an unknown mode
+    raises."""
     _, pop, v0 = ops
     state = pkry.init(pop, torch.from_numpy(v0), 5)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 12"):
-        pkry.factorize_from(pop, state, 1, "arnoldi")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 12"):
+    arnoldi = pkry.factorize_from(pop, state, 1, "arnoldi")
+    assert arnoldi.k == 5 and arnoldi.H.dtype == torch.float64
+    with pytest.raises(ValueError, match="lanczos_selective"):
         pkry.step_once(pop, state, 1, "lanczos_selective")
+    with pytest.raises(ValueError, match="bogus"):
+        pkry.factorize_from(pop, state, 1, "bogus")
+    state = pkry.init(pop, torch.from_numpy(v0), 5)
     state = pkry.factorize_from(pop, state, 1, "lanczos_selective")
     assert state.k == 5
 

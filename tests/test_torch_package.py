@@ -69,12 +69,30 @@ def test_entry_points_default_to_the_gpu():
         stt.SymShiftInvert.create(lap, lap).set_shift(0.5)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         stt.SymShiftInvert.create(lap.toarray(), lap.toarray()).set_shift(0.5)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stt.DenseGenRealShiftSolve.create(np.eye(4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stt.DenseGenComplexShiftSolve.create(np.eye(4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stt.SparseGenRealShiftSolve.create(lap).set_shift(0.5)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stt.SparseGenRealShiftSolve.create(lap, method="bicgstab").set_shift(0.5)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stt.SparseGenComplexShiftSolve.create(lap).set_shift(0.5, 0.1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stt.RealEmbeddedGenMatProd.create(np.eye(4) + 1j * np.eye(4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stt.RealEmbeddedGenMatProd.create(sps.eye(4, dtype=complex).tocsr())
     op = stt.SparseSymMatProd.from_full(lap, device="cpu")
     assert op.device.type == "cpu"
     s = stt.SymEigsSolver(op, nev=2, ncv=8)
     s.init()
     assert s.compute(stt.SortRule.LargestAlge) == 2
     assert s.eigenvectors().device.type == "cpu"
+    g = stt.GenEigsSolver(stt.SparseGenMatProd.create(lap, device="cpu"), nev=2, ncv=8)
+    g.init()
+    assert g.compute(stt.SortRule.LargestMagn) == 2
+    assert g.eigenvectors().device.type == "cpu" and g.eigenvectors().is_complex()
 
 
 def test_public_surface():
@@ -85,7 +103,11 @@ def test_public_surface():
         "GEigsMode", "DenseSymMatProd", "DenseGenMatProd",
         "DenseSymShiftSolve", "DenseCholesky", "SparseCholesky",
         "SparseRegularInverse", "SymShiftInvert", "SymGEigsSolver",
-        "SymGEigsShiftSolver",
+        "SymGEigsShiftSolver", "GenEigsSolver", "GenEigsRealShiftSolver",
+        "GenEigsComplexShiftSolver", "DenseGenRealShiftSolve",
+        "DenseGenComplexShiftSolve", "SparseGenRealShiftSolve",
+        "SparseGenComplexShiftSolve", "RealEmbeddedGenMatProd",
+        "RotatedEmbeddedGenMatProd",
     }
     assert all(hasattr(stt, name) for name in stt.__all__)
     A = sps.random(20, 20, density=0.3, random_state=0, format="csr")
