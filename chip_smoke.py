@@ -76,6 +76,22 @@ Phases, each printing JSON lines and its wall time:
     shift-solves at n=1000, the sparse real shift-solve by SuperLU and
     by BiCGStab (K1) and the sparse complex one by SuperLU on config
     #4's operator at g=100, and the Krylov-Schur restart there;
+11i. the Hermitian solvers at the reference's test sizes: the complex
+    IRLM on a dense Hermitian n=1000 (k=20, ncv=50, LargestAlge and
+    SmallestMagn), the same matrix through its J-structured real
+    embedding and through the Hermitian Bunch-Kaufman shift-solve, and a
+    sparse Hermitian matrix at n = 10^4 against ``scipy``'s ``eigsh``;
+11j. config #5b as ``bench.py:386-402`` runs it: ``DavidsonSymEigsSolver``
+    for the 10 largest of the diagonally dominant banded matrix (DIA,
+    d=5) at n = 10^6 and 250,000, K1's launches asserted equal to the
+    operator's calls (one a block), then at n = 100,000 against host
+    ARPACK, and a profile of three iterations at n = 10^6;
+11k. ``contrib``: the partial SVD on dense tall and wide matrices and
+    on config #4's operator at g=100 (K1), LOBPCG for the 10 smallest of
+    the g=100 Laplacian (K1 on blocks) and with deflation constraints;
+11l. K1 on 10- and 20-column f64 blocks at config #5b's shapes (n =
+    250,000 and 10^6), bitwise against its plain version, timed beside
+    its bound, plain version and the ``torch.sparse`` CSR block product;
 12. the north star as ``scripts/tpu_northstar_100m.py:158-174`` runs
     it: shift-invert with the multigrid inner solve, the stepped driver
     and ``compute_locked`` for the 20 smallest eigenvalues, counted with
@@ -86,8 +102,8 @@ Phases, each printing JSON lines and its wall time:
 13. a ``kernels`` line with each kernel's numbers;
 14. the last line, ``{"ok": true, "device": {...}}``.
 
-Each path (the probes, config #2, config #3, config #5a, config #4, the
-north star) sets the
+Each path (the probes, config #2, config #3, config #5a, config #4,
+config #5b, the north star) sets the
 launch counters to 0 just before it and reads them just after. Any
 failed check raises, so the script exits non-zero and prints no ``ok``
 line. Without a CUDA device it exits with code 2 before any phase. Only
@@ -1494,12 +1510,14 @@ def run_generalized_modes(torch, stt):
 
 
 class CountingOp:
-    """``op`` with a count of its ``perform_op`` calls: the SpMVs of
-    config #5a's B, each one K1 launch (a vector or a block)."""
+    """``op`` with a count of its ``perform_op`` calls and of the columns
+    they carried: the SpMVs of config #5a's B and of config #5b's
+    Davidson solve, each one K1 launch (a vector or a block)."""
 
     def __init__(self, op):
         self.op = op
         self.calls = 0
+        self.columns = 0
 
     dtype = property(lambda self: self.op.dtype)
     device = property(lambda self: self.op.device)
@@ -1510,8 +1528,12 @@ class CountingOp:
     def cols(self):
         return self.op.cols()
 
+    def diagonal(self):
+        return self.op.diagonal()
+
     def perform_op(self, x):
         self.calls += 1
+        self.columns += 1 if x.ndim == 1 else x.shape[1]
         return self.op.perform_op(x)
 
 
@@ -1792,6 +1814,369 @@ def run_gen_shift_modes(torch, stt, dmod):
         gen_check(M, e, 6, "gen_shift_modes", run=label, wall_s=wall, k1_launches=launches)
         if label in ("sparse_real_shift_bicgstab", "krylov_schur_g100") and launches == 0:
             raise RuntimeError(f"{label} made no K1 launch")
+
+
+def rand_herm(n, seed=123):
+    """``tests/test_herm_eigs.py:10-13``: a random dense Hermitian matrix."""
+    rng = np.random.RandomState(seed)
+    A = (rng.uniform(size=(n, n)) - 0.5) + 1j * (rng.uniform(size=(n, n)) - 0.5)
+    return A + A.conj().T
+
+
+def sparse_herm(n, per_row, seed):
+    """A random sparse Hermitian matrix built as ``tests/test_sparse.py:
+    17-27`` builds its complex matrices, then ``A + A^H``: about
+    ``per_row`` nonzeros a row."""
+    import scipy.sparse as sps
+
+    density = per_row / 4 / n
+    A = sps.random(n, n, density=density, random_state=np.random.RandomState(seed),
+                   format="csr")
+    A = A + 1j * sps.random(n, n, density=density,
+                            random_state=np.random.RandomState(seed + 1))
+    return (A + A.conj().T).tocsr()
+
+
+def herm_check(phase, A, vals, U, k, want, wall, **extra):
+    """One Hermitian solve's check: k pairs, ``||AU - U Lambda||_inf <=
+    1e-9`` on the host in complex128, and every value within 1e-9 of
+    ``want`` (both sorted)."""
+    resid = float(np.abs(A @ U - U * vals[None, :]).max()) if len(vals) else None
+    err = float(np.abs(np.sort(vals) - np.sort(want)).max()) if len(vals) == k else None
+    emit(phase=phase, nconv=len(vals), residual_inf=resid, max_err_vs_reference=err,
+         wall_s=wall, eigenvalues=np.sort(vals).tolist(), **extra)
+    if len(vals) != k or resid > 1e-9 or err > 1e-9:
+        raise RuntimeError(f"{phase} {extra.get('run', '')}: {len(vals)}/{k}, "
+                           f"residual {resid}, error {err}")
+
+
+def run_hermitian(torch, stt):
+    """The Hermitian solvers at the reference's test sizes
+    (``test/HermEigs.cpp``): ``HermEigsSolver`` on ``DenseHermMatProd`` of
+    ``rand_herm(1000)``, k=20, ncv=50, LargestAlge and SmallestMagn; the
+    same matrix through ``RealEmbeddedHermMatProd`` (the J-structured
+    Lanczos on the card) and through ``DenseHermShiftSolve`` at sigma=0.5
+    (the Hermitian Bunch-Kaufman factorization on the card); and
+    ``SparseHermMatProd`` (ELL) of a random sparse Hermitian matrix at
+    n = 10^4, about 20 nonzeros a row, k=10, LargestAlge, against
+    ``scipy.sparse.linalg.eigsh``. Each checked by ``herm_check``."""
+    from scipy.sparse.linalg import eigsh
+
+    n, k, m = 1000, 20, 50
+    A = rand_herm(n)
+    w = np.linalg.eigvalsh(A)
+    op = stt.DenseHermMatProd.create(A)
+    wanted = {"LargestAlge": w[-k:], "SmallestMagn": w[np.argsort(np.abs(w))[:k]]}
+    for rule, want in wanted.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e = stt.HermEigsSolver(op, nev=k, ncv=m)
+        e.init()
+        e.compute(getattr(stt.SortRule, rule), maxit=1000, tol=1e-10)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        U = e.eigenvectors()
+        if U.device != op.device or not U.is_complex():
+            raise RuntimeError(f"the Hermitian eigenvectors are {U.dtype} on {U.device}")
+        herm_check("hermitian", A, e.eigenvalues(), U.cpu().numpy(), k, want, wall,
+                   run=f"dense_{rule}", n=n, info=e.info().name,
+                   restarts=e.num_iterations(), operations=e.num_operations())
+
+    t0 = time.perf_counter()
+    emb = stt.RealEmbeddedHermMatProd.create(A)
+    e = stt.SymEigsSolver(emb, nev=k, ncv=m)
+    e.init()
+    e.compute(stt.SortRule.LargestAlge, maxit=1000, tol=1e-10)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    Z = emb.recover_eigenvectors(e.eigenvectors()).cpu().numpy()
+    herm_check("hermitian", A, e.eigenvalues(), Z, k, w[-k:], wall,
+               run="real_embedded_LargestAlge", n=2 * n, info=e.info().name,
+               structured=type(e._arnop).__name__,
+               restarts=e.num_iterations(), operations=e.num_operations())
+
+    sigma = 0.5
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    shifted = stt.DenseHermShiftSolve.create(A).set_shift(sigma)
+    torch.cuda.synchronize()
+    factor_s = time.perf_counter() - t0
+    e = stt.SymEigsShiftSolver.from_factored(shifted, k, m, sigma)
+    e.init()
+    e.compute(stt.SortRule.LargestMagn, maxit=1000, tol=1e-10)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    herm_check("hermitian", A, e.eigenvalues(), e.eigenvectors().cpu().numpy(), k,
+               w[np.argsort(np.abs(w - sigma))[:k]], wall, run="shift_invert_bkldlt",
+               n=n, sigma=sigma, factorize_s=factor_s, info=e.info().name,
+               pivots_2x2=int(shifted.factors.is2x2.sum()),
+               restarts=e.num_iterations(), operations=e.num_operations())
+
+    S = sparse_herm(10_000, 20, 17)
+    t0 = time.perf_counter()
+    ref = eigsh(S, k=10, which="LA", return_eigenvectors=False)
+    scipy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sop = stt.SparseHermMatProd.create(S)
+    e = stt.HermEigsSolver(sop, nev=10, ncv=30)
+    e.init()
+    e.compute(stt.SortRule.LargestAlge, maxit=1000, tol=1e-10)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    herm_check("hermitian", S, e.eigenvalues(), e.eigenvectors().cpu().numpy(), 10, ref,
+               wall, run="sparse_LargestAlge", n=S.shape[0], nnz=int(S.nnz),
+               format=type(sop.ell).__name__, info=e.info().name,
+               restarts=e.num_iterations(), operations=e.num_operations(),
+               scipy_eigsh_s=scipy_s)
+
+
+def config5b_matrix(n):
+    """``bench.py:386-402``: config #5b's diagonally dominant banded
+    matrix, ``diags([off2, off1, d, off1, off2], [-1000, -1, 0, 1, 1000])``
+    with ``d = linspace(1, 100, n)**2``."""
+    import scipy.sparse as sps
+
+    d = np.linspace(1.0, 100.0, n) ** 2
+    off1, off2 = np.full(n, 0.5), np.full(n, 0.25)
+    A = sps.diags([off2, off1, d, off1, off2], [-1000, -1, 0, 1, 1000],
+                  shape=(n, n), format="csr")
+    return A, d
+
+
+#: The JAX package's iterations at n = 250,000 on its accelerator
+#: (``bench_details.json``, ``davidson_250k_k10``), printed beside the
+#: port's for information.
+JAX_DAVIDSON_250K_NITER = 15
+
+
+def solve_config5b(torch, stt, dmod, pf, n, label):
+    """Config #5b as ``bench.py:386-402`` builds and solves it at size n:
+    ``SparseSymMatProd.from_full`` (DIA on the card, d=5, under the hi/lo
+    threshold), ``DavidsonSymEigsSolver(op, nev=10)``, ``compute(LargestAlge,
+    maxit=150, tol=1e-9 * max(d))``, the operator counted by
+    :class:`CountingOp`. Checks 10/10 ``Successful``, every residual
+    2-norm within tol, ``||U^T U - I||_max <= 1e-10``, K1's launches equal
+    to the operator's calls and its columns equal to ``num_operations()``.
+    Returns (values, K1 launches, the operator, the walls)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    A, d = config5b_matrix(n)
+    op = stt.SparseSymMatProd.from_full(A)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    m = op.ell
+    if not isinstance(m, pf.DiaMatrix) or m.offsets != (-1000, -1, 0, 1, 1000):
+        raise RuntimeError(f"config #5b's operator is {type(m).__name__}")
+    tol = 1e-9 * float(d.max())
+    counted = CountingOp(op)
+    torch.cuda.synchronize()
+    dmod.LAUNCHES = 0
+    t0 = time.perf_counter()
+    e = stt.DavidsonSymEigsSolver(counted, nev=10)
+    nconv = e.compute(stt.SortRule.LargestAlge, maxit=150, tol=tol)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    launches = dmod.LAUNCHES
+    vals = e.eigenvalues()
+    U = e.eigenvectors()
+    norms = torch.linalg.vector_norm(
+        dmod.dia_spmv_plain(m.data, m.offsets, U.contiguous(), n) - U * torch.from_numpy(
+            vals).to(U.device)[None, :], dim=0).cpu().numpy()
+    orth = float((U.mT @ U - torch.eye(U.shape[1], dtype=U.dtype, device=U.device))
+                 .abs().max())
+    emit(phase="config5b_davidson", run=label, n=A.shape[0], nnz=int(A.nnz), nconv=nconv,
+         info=e.info().name, niter=e.num_iterations(),
+         jax_niter_250k_tpu=JAX_DAVIDSON_250K_NITER if n == 250_000 else None,
+         operations=e.num_operations(), operator_calls=counted.calls,
+         operator_columns=counted.columns, k1_launches=launches, build_s=build_s,
+         solve_s=solve_s, tol=tol, max_residual=float(norms.max()),
+         orthogonality=orth, format=type(m).__name__, offsets=list(m.offsets),
+         eigenvalues=np.sort(vals)[::-1].tolist())
+    if nconv != 10 or e.info() != stt.CompInfo.Successful:
+        raise RuntimeError(f"config #5b at n={n}: {nconv}/10, {e.info().name}")
+    if norms.max() > tol or orth > 1e-10:
+        raise RuntimeError(f"config #5b at n={n}: residual {norms.max()}, "
+                           f"orthogonality {orth}")
+    if launches == 0 or launches != counted.calls or counted.columns != e.num_operations():
+        raise RuntimeError(f"config #5b at n={n}: K1 {launches} launches, "
+                           f"{counted.calls} calls, {counted.columns} columns, "
+                           f"{e.num_operations()} operations")
+    return vals, launches, op, dict(build_s=build_s, solve_s=solve_s)
+
+
+def run_config5b(torch, stt, dmod, pf):
+    """Config #5b at n = 10^6 (``bench.py``'s at-scale size) and at n =
+    250,000 (the JAX package's recorded run), each by
+    :func:`solve_config5b`; then the independent check at n = 100,000
+    (``bench.py``'s CPU size): the port on the card against host
+    ``scipy.sparse.linalg.eigsh(A, k=10, which="LA", tol=1e-9,
+    v0=SimpleRandom(0))``, the values within 1e-9 ||A||, as
+    ``bench.py:404-427`` compares them. Returns the n = 10^6 operator and
+    K1's launches by size."""
+    from scipy.sparse.linalg import eigsh
+
+    from spectra_tpu_torch.util.rng import SimpleRandom
+
+    launches = {}
+    _, launches[1_000_000], op_1m, _ = solve_config5b(torch, stt, dmod, pf, 1_000_000, "1M")
+    _, launches[250_000], _, _ = solve_config5b(torch, stt, dmod, pf, 250_000, "250k")
+    n = 100_000
+    vals, launches[n], _, walls = solve_config5b(torch, stt, dmod, pf, n, "100k")
+    A, d = config5b_matrix(n)
+    t0 = time.perf_counter()
+    w = eigsh(A, k=10, which="LA", tol=1e-9, v0=SimpleRandom(0).random_vec(n),
+              return_eigenvectors=False)
+    arpack_s = time.perf_counter() - t0
+    err = float(np.abs(np.sort(vals)[::-1] - np.sort(w)[::-1]).max())
+    emit(phase="config5b_vs_arpack", n=n, arpack_s=arpack_s, port_solve_s=walls["solve_s"],
+         eval_abs_err_vs_arpack=err, eval_err_vs_arpack_over_normA=err / float(d.max()))
+    if err > 1e-9 * float(d.max()):
+        raise RuntimeError(f"config #5b at n={n} is {err} from ARPACK")
+    return op_1m, launches
+
+
+def profile_config5b(torch, stt, op):
+    """Where config #5b's time goes: three Davidson iterations at n =
+    10^6 under torch.profiler, outside the counted run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        e = stt.DavidsonSymEigsSolver(op, nev=10)
+        e.compute(stt.SortRule.LargestAlge, maxit=3, tol=1e-9 * 1e4)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    emit_profile("profile_config5b_iterations", prof, wall_ms,
+                 iterations=e.num_iterations(), operations=e.num_operations())
+
+
+def run_contrib(torch, stt, dmod):
+    """The ``contrib`` solvers: ``PartialSVDSolver`` on a dense tall
+    (2000, 1000) and wide (1000, 2000) normal matrix against
+    ``numpy.linalg.svd`` and on config #4's convection operator at g=100
+    (DIA: K1 forward, the plain ``rmatvec`` adjoint) against
+    ``scipy.sparse.linalg.svds``; ``LOBPCGSolver`` for the 10 smallest of
+    the g=100 2-D Laplacian (DIA, K1 on its blocks), ``maxit=500``,
+    ``tol_div_n=1e-10``, against the analytic values, and the
+    constraint-deflation case of ``tests/test_contrib.py:89-106`` at g=32.
+    Each with its residual and wall; K1's launches equal the products'
+    calls where the operator is DIA."""
+    from scipy.sparse.linalg import svds
+
+    def svd_check(run, A, svds_obj, ref, wall, **extra):
+        s = svds_obj.singular_values()
+        U = svds_obj.matrix_U(5).cpu().numpy()
+        V = svds_obj.matrix_V(5).cpu().numpy()
+        resid = float(np.abs(A @ V - U * s[None, :]).max()) if len(s) == 5 else None
+        err = float(np.abs(s - ref).max()) if len(s) == 5 else None
+        emit(phase="contrib", run=run, nconv=len(s), info=svds_obj.info().name,
+             restarts=svds_obj.num_iterations(), operations=svds_obj.num_operations(),
+             max_err=err, residual_inf=resid, wall_s=wall,
+             singular_values=s.tolist(), **extra)
+        if len(s) != 5 or err > 1e-8 * max(1.0, ref[0]) or resid > 1e-7:
+            raise RuntimeError(f"partial SVD {run}: error {err}, residual {resid}")
+
+    rng = np.random.default_rng(2000)
+    for shape in ((2000, 1000), (1000, 2000)):
+        A = rng.normal(size=shape)
+        t0 = time.perf_counter()
+        p = stt.PartialSVDSolver(A, ncomp=5, ncv=15)
+        p.compute()
+        torch.cuda.synchronize()
+        svd_check(f"partial_svd_dense_{shape[0]}x{shape[1]}", A, p,
+                  np.linalg.svd(A, compute_uv=False)[:5], time.perf_counter() - t0)
+
+    S = config4_matrix(100)
+    ref = np.sort(svds(S, k=5, return_singular_vectors=False))[::-1]
+    torch.cuda.synchronize()
+    dmod.LAUNCHES = 0
+    t0 = time.perf_counter()
+    p = stt.PartialSVDSolver(S, ncomp=5, ncv=20)
+    p.compute()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dmod.LAUNCHES
+    svd_check("partial_svd_config4_g100", S, p, ref, wall, format=type(p._matop.ell).__name__,
+              k1_launches=launches)
+    if launches != p.num_operations():
+        raise RuntimeError(f"partial SVD on DIA: K1 {launches}, {p.num_operations()} products")
+
+    g = 100
+    L = laplacian_2d(g)
+    op = CountingOp(stt.SparseGenMatProd.create(L))
+    X0 = np.random.default_rng(0).normal(size=(g * g, 10))
+    torch.cuda.synchronize()
+    dmod.LAUNCHES = 0
+    t0 = time.perf_counter()
+    lo = stt.LOBPCGSolver(op, X0)
+    nconv = lo.compute(maxit=500, tol_div_n=1e-10)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dmod.LAUNCHES
+    vals = np.sort(lo.eigenvalues())
+    err = float(np.abs(vals - analytic_2d(g)[:10]).max())
+    emit(phase="contrib", run="lobpcg_laplacian_g100", nconv=nconv, info=lo.info().name,
+         iterations=lo.num_iterations(), max_err_vs_analytic=err,
+         max_residual=float(lo.residuals().max()), tol=1e-10 * g * g, wall_s=wall,
+         k1_launches=launches, operator_calls=op.calls, operator_columns=op.columns,
+         format=type(op.op.ell).__name__)
+    if nconv != 10 or lo.info() != stt.CompInfo.Successful or err > 1e-6:
+        raise RuntimeError(f"LOBPCG at g=100: {nconv}/10, error {err}")
+    if launches == 0 or launches != op.calls:
+        raise RuntimeError(f"LOBPCG at g=100: K1 {launches} launches, {op.calls} calls")
+
+    g = 32
+    L = laplacian_2d(g)
+    w, V = np.linalg.eigh(L.toarray())
+    t0 = time.perf_counter()
+    lo = stt.LOBPCGSolver(L, np.random.default_rng(3).normal(size=(g * g, 2)))
+    lo.set_constraints(V[:, :2])
+    nconv = lo.compute(maxit=300, tol_div_n=1e-10)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    err = float(np.abs(np.sort(lo.eigenvalues()) - w[2:4]).max())
+    emit(phase="contrib", run="lobpcg_constraints_g32", nconv=nconv, info=lo.info().name,
+         iterations=lo.num_iterations(), max_err_vs_eigh=err,
+         max_residual=float(lo.residuals().max()), wall_s=wall)
+    if nconv != 2 or lo.info() != stt.CompInfo.Successful or err > 1e-6:
+        raise RuntimeError(f"LOBPCG with constraints at g=32: {nconv}/2, error {err}")
+
+
+def phase_k1_blocks(torch, dmod, pf, rates, floor):
+    """K1 on column blocks, first timed here: config #5b's operator (d=5)
+    at n = 250,000 and 10^6 on 10 and 20 f64 columns, bitwise against
+    its plain version on the card, then timed cold beside its bound
+    (data, X and Y once each), its plain version and one ``torch.sparse``
+    CSR product with the dense block."""
+    bandwidth, f64_rate, _ = rates
+    timer = Timer(torch)
+    out = {}
+    for n in (250_000, 1_000_000):
+        A, _ = config5b_matrix(n)
+        m = pf.dia_from_scipy(A)
+        csr = torch_csr(torch, A, np.float64)
+        d = len(m.offsets)
+        for ncol in (10, 20):
+            X = torch.randn((n, ncol), dtype=torch.float64, device="cuda")
+            Y = m.matmat(X)
+            if not torch.equal(Y, dmod.dia_spmv_plain(m.data, m.offsets, X, n)):
+                raise RuntimeError(f"K1 is not bitwise its plain version on a "
+                                   f"{ncol}-column block at n={n}")
+            t = timed_entry(
+                timer, lambda: m.matmat(X),
+                lambda: dmod.dia_spmv_plain(m.data, m.offsets, X, n),
+                lambda: csr @ X, (d * n + 2 * n * ncol) * 8, 2 * A.nnz * ncol,
+                f64_rate, bandwidth, back_to_back=True,
+            )
+            t.update(kernel="dia_spmv", n=n, d=d, ncol=ncol, nnz=int(A.nnz),
+                     floor_ms=floor["ms"], config=dmod.card_launch(n, ncol, 0),
+                     enqueue_us=enqueue_us(torch, lambda: m.matmat(X)), max_abs_err=0.0)
+            emit(phase="k1_block_timing", **t)
+            out[f"n{n}_c{ncol}"] = t
+        del m, csr
+        torch.cuda.empty_cache()
+    return out
 
 
 def run_north_star(torch, stt, dmod, dsmod, pmg, pf, A, dia64, matrix_s):
@@ -2202,6 +2587,12 @@ def main(argv):
     del op4
     phase("gen_dense_n1000", run_gen_dense, torch, stt)
     phase("gen_shift_modes", run_gen_shift_modes, torch, stt, dmod)
+    phase("hermitian", run_hermitian, torch, stt)
+    op5b, k1_config5b = phase("config5b_davidson", run_config5b, torch, stt, dmod, pf)
+    phase("config5b_profile", profile_config5b, torch, stt, op5b)
+    del op5b
+    phase("contrib", run_contrib, torch, stt, dmod)
+    k1_blocks = phase("k1_block_timing", phase_k1_blocks, torch, dmod, pf, rates, k1_floor)
     ns_op, k1_ns, k2_ns, ns_cycles, ns_solves = phase(
         "north_star", run_north_star, torch, stt, dmod, dsmod, pmg, pf, A243,
         dia243, matrix_s,
@@ -2232,6 +2623,9 @@ def main(argv):
             launches_config3_full_reorth=k1_config3_full,
             launches_config5a=k1_config5a,
             launches_config4=k1_config4, config4=k1_config4_t,
+            launches_config5b=k1_config5b[1_000_000],
+            launches_config5b_by_n={str(k): v for k, v in k1_config5b.items()},
+            block_timings=k1_blocks,
             launches_north_star=k1_ns,
             north_star_levels=[t for t in level_t if t["kernel"] == "dia_spmv"],
             k1_levels=k1_levels, launch_floor=k1_floor,

@@ -12,7 +12,11 @@ problem ``A x = lambda B x`` runs in its five modes (``GEigsMode``).
 General (non-symmetric) matrices, real or complex, run the implicitly
 restarted Arnoldi method (``GenEigsSolver``, implicit or Krylov-Schur
 restarts) and its real- and complex-shift inversions, by LU on the card,
-SuperLU on the host or BiCGStab on the card.
+SuperLU on the host or BiCGStab on the card. Complex Hermitian
+matrices run the same Lanczos in complex arithmetic (``HermEigsSolver``),
+or their real J-structured embedding. The Jacobi-Davidson family
+(``DavidsonSymEigsSolver``) runs its fixed-buffer loop on the card, and
+``contrib`` holds the partial SVD and LOBPCG.
 The small (ncv, ncv) projected problem runs on the host in f64, and
 small dense f64 problems go whole to a native Krylov-Schur driver on
 the host (``csrc/dense_eigs.cpp``; ``SPECTRA_TPU_DENSE_DRIVER=torch``
@@ -25,29 +29,44 @@ This package imports torch, numpy and scipy, never jax or
 ``spectra_tpu``.
 """
 
+from spectra_tpu_torch.contrib.lobpcg import LOBPCGSolver
+from spectra_tpu_torch.contrib.partial_svd import PartialSVDSolver
 from spectra_tpu_torch.matop.cholesky import DenseCholesky, SparseCholesky
-from spectra_tpu_torch.matop.dense import DenseGenMatProd, DenseSymMatProd
+from spectra_tpu_torch.matop.dense import (
+    DenseGenMatProd,
+    DenseHermMatProd,
+    DenseSymMatProd,
+)
 from spectra_tpu_torch.matop.gen_embed import (
     RealEmbeddedGenMatProd,
     RotatedEmbeddedGenMatProd,
 )
+from spectra_tpu_torch.matop.herm_embed import RealEmbeddedHermMatProd
 from spectra_tpu_torch.matop.regular_inverse import SparseRegularInverse
 from spectra_tpu_torch.matop.shift_solve import (
     DenseGenComplexShiftSolve,
     DenseGenRealShiftSolve,
+    DenseHermShiftSolve,
     DenseSymShiftSolve,
     SparseGenComplexShiftSolve,
     SparseGenRealShiftSolve,
     SparseSymShiftSolve,
 )
-from spectra_tpu_torch.matop.sparse import SparseGenMatProd, SparseSymMatProd
+from spectra_tpu_torch.matop.sparse import (
+    SparseGenMatProd,
+    SparseHermMatProd,
+    SparseSymMatProd,
+)
 from spectra_tpu_torch.matop.sym_shift_invert import SymShiftInvert
 from spectra_tpu_torch.solvers.cheb_sym_eigs import ChebSymEigsSolver
+from spectra_tpu_torch.solvers.davidson import DavidsonSymEigsSolver
 from spectra_tpu_torch.solvers.gen_eigs import GenEigsSolver
 from spectra_tpu_torch.solvers.gen_eigs_shift import (
     GenEigsComplexShiftSolver,
     GenEigsRealShiftSolver,
 )
+from spectra_tpu_torch.solvers.herm_eigs import HermEigsSolver
+from spectra_tpu_torch.solvers.jd_sym_eigs import JDSymEigsBase
 from spectra_tpu_torch.solvers.sym_eigs import SymEigsSolver
 from spectra_tpu_torch.solvers.sym_eigs_shift import SymEigsShiftSolver
 from spectra_tpu_torch.solvers.sym_geigs import SymGEigsSolver
@@ -60,10 +79,13 @@ from spectra_tpu_torch.util.selection import SortRule
 __all__ = [
     "ChebSymEigsSolver",
     "CompInfo",
+    "DavidsonSymEigsSolver",
     "DenseCholesky",
     "DenseGenComplexShiftSolve",
     "DenseGenMatProd",
     "DenseGenRealShiftSolve",
+    "DenseHermMatProd",
+    "DenseHermShiftSolve",
     "DenseSymMatProd",
     "DenseSymShiftSolve",
     "DiaHiLoMatrix",
@@ -71,13 +93,19 @@ __all__ = [
     "GenEigsComplexShiftSolver",
     "GenEigsRealShiftSolver",
     "GenEigsSolver",
+    "HermEigsSolver",
+    "JDSymEigsBase",
+    "LOBPCGSolver",
+    "PartialSVDSolver",
     "RealEmbeddedGenMatProd",
+    "RealEmbeddedHermMatProd",
     "RotatedEmbeddedGenMatProd",
     "SortRule",
     "SparseCholesky",
     "SparseGenComplexShiftSolve",
     "SparseGenMatProd",
     "SparseGenRealShiftSolve",
+    "SparseHermMatProd",
     "SparseRegularInverse",
     "SparseSymMatProd",
     "SparseSymShiftSolve",

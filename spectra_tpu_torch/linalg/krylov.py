@@ -8,8 +8,12 @@ Arnoldi) and f the residual.
 
 Where the work runs: every n-length tensor (V, f and the operator's
 data) stays on the operator's device. H, ``beta = ||f||`` and the
-counters live on the host: H is a CPU tensor, f64 (c128 for a complex
-operator), the replicated small problem of the design, not a fallback.
+counters live on the host: H is a CPU tensor, the replicated small
+problem of the design, not a fallback. H is f64, and complex128 only
+for the Arnoldi process on a complex operator: the Lanczos projection
+of a Hermitian operator is real, so its entries are stored as their
+real parts (``alpha = Re(v^H A v)``, ``beta = ||f||``), and the
+restart pipeline of a complex Hermitian problem is the real one.
 The JAX package's ``lax.while_loop``/``fori_loop`` driver becomes a
 host loop: each data-dependent branch (the DGKS test, the breakdown
 test) reads one scalar or one (m,) coefficient vector back with
@@ -34,7 +38,13 @@ Numerical rules are carried over from the reference verbatim
     Its vectors come from a ``torch.Generator`` seeded from
     (seed, step, try), deterministic but not the JAX package's bits;
   * a deflated operator (``LockedArnoldiOp``) has every residual
-    re-projected out of the locked block at birth (``_deflate_residual``).
+    re-projected out of the locked block at birth (``_deflate_residual``);
+  * a structured operator (``has_structure``, the J-structured real
+    embedding of a Hermitian matrix) orthogonalizes the start vector,
+    every residual and every breakdown candidate against the wider
+    ``arnop.ortho_basis(V)`` (``[V; J V]``), whose extra coefficients
+    are not recorded in H; selective re-orthogonalization falls back to
+    full there.
 
 Two further modes:
   * ``"lanczos_selective"``: Simon's omega-recurrence selective
@@ -84,18 +94,37 @@ def _check_mode(mode: str, allowed) -> None:
         raise ValueError(f"mode {mode!r}: use one of {', '.join(allowed)}")
 
 
-def _host_dtype(dtype: torch.dtype) -> torch.dtype:
-    """The dtype of H for basis dtype ``dtype``: f64, or c128 for a
-    complex basis."""
-    return torch.complex128 if dtype.is_complex else torch.float64
+def _host_dtype(dtype: torch.dtype, hermitian: bool) -> torch.dtype:
+    """The dtype of H for basis dtype ``dtype``: c128 for the Arnoldi
+    process on a complex basis, else f64."""
+    return torch.complex128 if dtype.is_complex and not hermitian else torch.float64
+
+
+def _h_entry(H, x):
+    """``x`` as an entry (or column) of H: its real part where H is real,
+    the projection of a Hermitian operator, whose imaginary parts are
+    rounding."""
+    return x if H.is_complex() else x.real
 
 
 def _maxabs(coeffs) -> float:
     return max(abs(c) for c in coeffs)
 
 
-def init(arnop, v0, m: int, seed: int = 0) -> KrylovState:
-    """Build the 1-step factorization from the starting vector ``v0``.
+def _structure_clean(arnop, v):
+    """The start vector of a structured operator projected off its
+    structural partners (``J v``) and renormalized: a rounding-level
+    change, since v is J-orthogonal to itself analytically."""
+    near_0 = dtypes.near_zero(v.dtype)
+    sb = arnop.ortho_basis(v[None, :])[1:]
+    v = v - basis_apply(sb, arnop.adjoint_product(sb, v))
+    return v / max(arnop.norm(v).item(), near_0)
+
+
+def init(arnop, v0, m: int, seed: int = 0, hermitian: bool = False) -> KrylovState:
+    """Build the 1-step factorization from the starting vector ``v0``;
+    ``hermitian`` (the Lanczos process) keeps H real for a complex
+    operator.
 
     The caller must ensure ``||v0|| > 0`` (checked in the solver
     driver, mirroring the reference's invalid_argument).
@@ -113,10 +142,17 @@ def init(arnop, v0, m: int, seed: int = 0) -> KrylovState:
         v = v0 / arnop.norm(v0)
     else:
         v = v / vnorm
+    if arnop.has_structure:
+        v = _structure_clean(arnop, v)
 
     w = arnop.perform_op(v)
     h00 = arnop.inner_product(v, w)
     f = w - h00 * v
+    if arnop.has_structure:
+        # Remove the structural (J-orbit) rounding components, so that
+        # the next basis vector f/||f|| is structure-clean.
+        jv = arnop.ortho_basis(v[None, :])[1:]
+        f = f - basis_apply(jv, arnop.adjoint_product(jv, f))
 
     # If v is already an eigenvector, f is pure rounding noise: force it
     # to zero so the next factorization step restarts cleanly.
@@ -129,8 +165,8 @@ def init(arnop, v0, m: int, seed: int = 0) -> KrylovState:
 
     V = torch.zeros((m, n), dtype=dtype, device=v0.device)
     V[0] = v
-    H = torch.zeros((m, m), dtype=_host_dtype(dtype))
-    H[0, 0] = h00_h
+    H = torch.zeros((m, m), dtype=_host_dtype(dtype, hermitian))
+    H[0, 0] = _h_entry(H, h00_h)
     return KrylovState(V=V, H=H, f=f, beta=beta, k=1, nops=2, seed=seed)
 
 
@@ -176,9 +212,11 @@ def _reorth_loop(arnop, V, f, beta: float, H, i: int, mode: str = "lanczos"):
 
     Updates f, beta and (in place) the H entries of column i per the
     reference rules: the tridiagonal entries in Lanczos mode, the whole
-    column in Arnoldi mode. Returns (f, beta).
+    column in Arnoldi mode. Only the leading V-coefficients enter H; a
+    structured operator's extra ones are noise removal. Returns
+    (f, beta).
     """
-    n = V.shape[1]
+    m, n = V.shape
     eps = dtypes.eps(V.dtype)
     beta_thresh = eps * math.sqrt(n)
 
@@ -193,14 +231,14 @@ def _reorth_loop(arnop, V, f, beta: float, H, i: int, mode: str = "lanczos"):
             return torch.zeros_like(f), 0.0
         f = f - basis_apply(Vp, Vf)
         if mode == "lanczos":
-            hsub = H[i - 1, i].item() + coeffs[i - 1]
+            hsub = H[i - 1, i].item() + _h_entry(H, coeffs[i - 1])
             H[i - 1, i] = hsub
             H[i, i - 1] = hsub
-            H[i, i] += coeffs[i]
+            H[i, i] += _h_entry(H, coeffs[i])
         else:
             # Full column correction h <- h + Vf (entries past i are zero
             # by the zero-row invariant of V).
-            H[:, i] += Vf_host.to(H.dtype)
+            H[:, i] += _h_entry(H, Vf_host[:m]).to(H.dtype)
         Vf = arnop.adjoint_product(Vp, f)
         Vf_host, beta = _read_with_norm(Vf, arnop.norm(f))
         coeffs = Vf_host.tolist()
@@ -221,7 +259,7 @@ def _lanczos_coeffs(arnop, V, H, v, w, h_sub: float, i: int):
     f = w - alpha * v
     H[i, i - 1] = h_sub
     H[i - 1, i] = h_sub
-    H[i, i] = alpha.item()
+    H[i, i] = _h_entry(H, alpha.item())
     return f, arnop.norm(f).item()
 
 
@@ -233,13 +271,16 @@ def _post_op(arnop, V, H, v, w, h_sub: float, i: int, mode: str = "lanczos"):
         f, beta = _reorth_loop(arnop, V, f, beta, H, i)
     else:
         # Full Gram-Schmidt: h = V^T w over all current rows (the rows
-        # past i are zero, so the full-width product is exact). The DGKS
-        # loop is skipped when ||f|| > 0.717 ||h|| (Arnoldi.h:257).
-        h = arnop.adjoint_product(V, w)
-        f = w - basis_apply(V, h)
+        # past i are zero, so the full-width product is exact), against
+        # the widened basis of a structured operator, whose leading
+        # V-coefficients alone enter H. The DGKS loop is skipped when
+        # ||f|| > 0.717 ||h|| (Arnoldi.h:257).
+        Vp = arnop.ortho_basis(V)
+        h = arnop.adjoint_product(Vp, w)
+        f = w - basis_apply(Vp, h)
         h_host, beta = _read_with_norm(h, arnop.norm(f))
-        h_host = h_host.to(H.dtype)
-        H[:, i] = h_host
+        h_host = h_host[: V.shape[0]]
+        H[:, i] = _h_entry(H, h_host).to(H.dtype)
         H[i, i - 1] = h_sub
         if not beta > 0.717 * torch.linalg.vector_norm(h_host).item():
             f, beta = _reorth_loop(arnop, V, f, beta, H, i, mode)
@@ -398,10 +439,14 @@ def step_once(arnop, state: KrylovState, i: int, mode: str) -> KrylovState:
 
 
 def factorize_from(arnop, state: KrylovState, from_k, mode: str) -> KrylovState:
-    """Extend the factorization from ``from_k`` steps to the full m."""
+    """Extend the factorization from ``from_k`` steps to the full m. A
+    structured operator runs ``"lanczos_selective"`` as ``"lanczos"``:
+    the omega recurrence does not model its extra projections."""
     _check_mode(mode, ("lanczos", "lanczos_selective", "arnoldi"))
     if mode == "lanczos_selective":
-        return _factorize_selective(arnop, state, from_k)
+        if not arnop.has_structure:
+            return _factorize_selective(arnop, state, from_k)
+        mode = "lanczos"
     m = state.V.shape[0]
     for i in range(max(int(from_k), 1), m):
         state = _step(arnop, state, i, mode)

@@ -1,0 +1,66 @@
+"""Basis orthogonalization for the Jacobi-Davidson stack.
+
+Port of :mod:`spectra_tpu.linalg.orthogonalization` (reference:
+include/Spectra/LinAlg/Orthogonalization.h:46-137): QR, Gram-Schmidt
+(classic and modified), the projection of new columns against an
+orthonormal block, the ``JensWehner`` method (that projection, then a
+QR of the new block) and ``twice_is_enough``, which applies it twice.
+Each takes a tensor (n, k) and works on its device; QR is
+``torch.linalg.qr`` (cuSOLVER on the card, LAPACK on the CPU). The
+Gram-Schmidt variants loop over the columns on the host, as the JAX
+package's ``fori_loop`` does.
+"""
+
+import torch
+
+
+def qr_orthogonalisation(A):
+    """The columns of A orthonormalized by a reduced QR, the signs fixed
+    so that R has a non-negative diagonal. The result is row-major
+    contiguous: a block the DIA kernel takes as it is."""
+    Q, R = torch.linalg.qr(A)
+    d = torch.diagonal(R)
+    signs = torch.sgn(torch.where(d == 0, torch.ones_like(d), d))
+    return (Q * signs.conj()[None, :]).contiguous()
+
+
+def gram_schmidt_orthogonalisation(A):
+    """Classic Gram-Schmidt over the columns."""
+    Q = torch.zeros_like(A)
+    for j in range(A.shape[1]):
+        v = A[:, j] - Q[:, :j] @ (Q[:, :j].mH @ A[:, j])
+        Q[:, j] = v / torch.linalg.vector_norm(v)
+    return Q
+
+
+def modified_gram_schmidt_orthogonalisation(A):
+    """Modified Gram-Schmidt over the columns."""
+    Q = torch.zeros_like(A)
+    for j in range(A.shape[1]):
+        v = A[:, j]
+        for i in range(j):
+            v = v - torch.vdot(Q[:, i], v) * Q[:, i]
+        Q[:, j] = v / torch.linalg.vector_norm(v)
+    return Q
+
+
+def subspace_orthogonalisation(A, n_locked: int):
+    """The trailing columns of A projected against its first
+    ``n_locked`` (orthonormal) columns: ``A_new - Q Q^H A_new``."""
+    Q, rest = A[:, :n_locked], A[:, n_locked:]
+    return torch.cat([Q, rest - Q @ (Q.mH @ rest)], dim=1)
+
+
+def jens_wehner_orthogonalisation(A, n_locked: int):
+    """The subspace projection of the new columns, then their QR
+    (reference: Orthogonalization.h:133-137)."""
+    A = subspace_orthogonalisation(A, n_locked)
+    return torch.cat([A[:, :n_locked], qr_orthogonalisation(A[:, n_locked:])], dim=1)
+
+
+def twice_is_enough(A, n_locked: int):
+    """:func:`jens_wehner_orthogonalisation` twice, Kahan's rule
+    (reference: Orthogonalization.h, used by SearchSpace.h:84)."""
+    return jens_wehner_orthogonalisation(
+        jens_wehner_orthogonalisation(A, n_locked), n_locked
+    )

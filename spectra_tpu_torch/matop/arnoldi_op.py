@@ -6,9 +6,10 @@ with the metric ``B`` of a generalized problem, so that inner products,
 projections and norms are taken in ``<x, y> = x^H B y``, on the
 operator's device. ``bop=None`` means B = I, and then each is a plain
 dot with no B product. :class:`LockedArnoldiOp` deflates it against
-locked Ritz vectors (``compute_locked``) in the same metric. The
-J-structured operator of the Hermitian embedding waits for its slice
-(ROADMAP.md item 14).
+locked Ritz vectors (``compute_locked``) in the same metric.
+:class:`JStructuredArnoldiOp` is the operator of the real embedding of
+a Hermitian problem, whose residuals are also orthogonalized against
+``J V``.
 """
 
 import torch
@@ -25,6 +26,10 @@ class IdentityBOp:
 class ArnoldiOp:
     """Krylov operator and B-metric; ``bop=None`` means B = I."""
 
+    #: True when ``ortho_basis`` is wider than V, so that the
+    #: factorization orthogonalizes against the extra rows too.
+    has_structure = False
+
     def __init__(self, op, bop=None):
         self.op = op
         self.bop = bop
@@ -33,11 +38,8 @@ class ArnoldiOp:
     def create(cls, op, bop=None):
         if isinstance(bop, IdentityBOp):
             bop = None
-        if bop is None and hasattr(op, "j_map"):
-            raise NotImplementedError(
-                "J-structured operators wait for their slice: "
-                "ROADMAP.md item 14"
-            )
+        if bop is None and hasattr(op, "j_map") and cls is ArnoldiOp:
+            return JStructuredArnoldiOp(op, None)
         return cls(op, bop)
 
     @property
@@ -83,6 +85,25 @@ class ArnoldiOp:
         return V
 
 
+class JStructuredArnoldiOp(ArnoldiOp):
+    """An :class:`ArnoldiOp` for an operator with a commuting complex
+    structure J, ``op.j_map`` (the real embedding of a Hermitian matrix,
+    :class:`~spectra_tpu_torch.matop.herm_embed.RealEmbeddedHermMatProd`,
+    where ``J(x, y) = (-y, x)`` is multiplication by i).
+
+    Real Lanczos on the embedding never sees ``J v`` in exact
+    arithmetic, but rounding leaks J-orbit components into the basis,
+    which grow into phantom duplicate Ritz pairs. Every residual is
+    therefore orthogonalized against ``[V; J V]``: each Ritz pair is then
+    a distinct complex eigenpair. The extra coefficients are rounding
+    noise and are not recorded in H."""
+
+    has_structure = True
+
+    def ortho_basis(self, V):
+        return torch.cat([V, self.op.j_map(V)], dim=0)
+
+
 class LockedArnoldiOp:
     """An :class:`ArnoldiOp` deflated against locked (converged) Ritz
     vectors: ``perform_op = P . inner . P`` with the B-orthogonal
@@ -106,6 +127,10 @@ class LockedArnoldiOp:
         self.locked = tuple(locked)
 
     @property
+    def has_structure(self):
+        return self.inner.has_structure
+
+    @property
     def op(self):
         return self.inner.op
 
@@ -125,9 +150,11 @@ class LockedArnoldiOp:
         return self.inner.rows()
 
     def deflate(self, y):
-        """``P y``: remove the B-components along every locked block."""
+        """``P y``: remove the B-components along every locked block (and
+        their J-orbits for a structured inner operator)."""
         for blk in self.locked:
-            y = y - basis_apply(blk, self.inner.adjoint_product(blk, y))
+            wide = self.inner.ortho_basis(blk)
+            y = y - basis_apply(wide, self.inner.adjoint_product(wide, y))
         return y
 
     def perform_op(self, x):

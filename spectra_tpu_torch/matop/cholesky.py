@@ -18,7 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from spectra_tpu_torch.matop.dense import _as_tensor, _symmetrize
+from spectra_tpu_torch.matop.dense import _as_tensor, _hermitize
 from spectra_tpu_torch.util.capabilities import resolve_device
 from spectra_tpu_torch.util.compinfo import CompInfo
 
@@ -32,7 +32,8 @@ def _tri_solve(L, x, upper):
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class DenseCholesky:
-    """B = L L^H for dense SPD B (reference: DenseCholesky.h:101-119).
+    """B = L L^H for dense SPD (real) or HPD (complex) B (reference:
+    DenseCholesky.h:101-119).
     ``info()`` is ``NumericalIssue`` when the factor is not finite (B not
     positive definite)."""
 
@@ -41,11 +42,7 @@ class DenseCholesky:
     @classmethod
     def create(cls, mat, uplo: str = "L", device=None):
         mat = _as_tensor(mat, device)
-        if mat.dtype.is_complex:
-            raise NotImplementedError(
-                "a complex (Hermitian) B waits for its slice: ROADMAP.md item 14"
-            )
-        L, info = torch.linalg.cholesky_ex(_symmetrize(mat, uplo))
+        L, info = torch.linalg.cholesky_ex(_hermitize(mat, uplo))
         if int(info) != 0:
             # cholesky_ex leaves a partial factor; the JAX package's
             # factor of a matrix that is not SPD is NaN.

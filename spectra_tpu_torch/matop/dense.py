@@ -2,14 +2,14 @@
 
 Port of :mod:`spectra_tpu.matop.dense` (reference:
 include/Spectra/MatOp/DenseSymMatProd.h:29-107,
-DenseGenMatProd.h:35-113). The matrix is one tensor on the operator's
-device and ``perform_op`` is one product (cuBLAS on the card). The
+DenseGenMatProd.h:35-113, DenseHermMatProd.h). The matrix is one tensor
+on the operator's device and ``perform_op`` is one product (cuBLAS on
+the card). The
 reference's ``Uplo`` choice of triangle is applied once, at
 construction, as in the JAX package: the stored matrix is full.
 
 ``create`` takes a numpy array or a tensor and ``device``; ``None``
-means the GPU and raises when there is none. ``DenseHermMatProd``
-waits for its slice (ROADMAP.md item 14).
+means the GPU and raises when there is none.
 """
 
 import dataclasses
@@ -32,6 +32,16 @@ def _symmetrize(mat, uplo):
         return torch.tril(mat) + torch.tril(mat, -1).mT
     if uplo == "U":
         return torch.triu(mat) + torch.triu(mat, 1).mT
+    raise ValueError("uplo must be 'L' or 'U'")
+
+
+def _hermitize(mat, uplo):
+    """The full Hermitian matrix from the ``uplo`` triangle of ``mat``
+    (the symmetric one for a real ``mat``)."""
+    if uplo == "L":
+        return torch.tril(mat) + torch.tril(mat, -1).mH
+    if uplo == "U":
+        return torch.triu(mat) + torch.triu(mat, 1).mH
     raise ValueError("uplo must be 'L' or 'U'")
 
 
@@ -91,3 +101,22 @@ class DenseSymMatProd(_DenseProdBase):
     @classmethod
     def create(cls, mat, uplo: str = "L", device=None):
         return cls(mat=_symmetrize(_as_tensor(mat, device), uplo))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DenseHermMatProd(_DenseProdBase):
+    """y = A x for a dense complex Hermitian matrix; ``create(mat, uplo)``
+    reads only the ``uplo`` triangle and promotes a real matrix to
+    complex128 (f64) or complex64. ``diagonal()`` stays complex, as in
+    the JAX package."""
+
+    mat: torch.Tensor
+
+    @classmethod
+    def create(cls, mat, uplo: str = "L", device=None):
+        mat = _as_tensor(mat, device)
+        if not mat.dtype.is_complex:
+            mat = mat.to(
+                torch.complex128 if mat.dtype == torch.float64 else torch.complex64
+            )
+        return cls(mat=_hermitize(mat, uplo))

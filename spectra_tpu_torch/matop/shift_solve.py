@@ -8,9 +8,10 @@ SparseGenComplexShiftSolve.h:32-124). Following the reference's API,
 an operator is created unshifted and ``set_shift`` builds the solver
 for ``A - sigma I``, returning a new operator.
 
-:class:`DenseSymShiftSolve` factors the dense matrix with the
-Bunch-Kaufman LDL^T of :mod:`spectra_tpu_torch.linalg.bkldlt` on the
-matrix's device; each ``perform_op`` is two triangular solves there.
+:class:`DenseSymShiftSolve` and :class:`DenseHermShiftSolve` factor the
+dense matrix with the Bunch-Kaufman LDL^H of
+:mod:`spectra_tpu_torch.linalg.bkldlt` on the matrix's device; each
+``perform_op`` is two triangular solves there.
 :class:`DenseGenRealShiftSolve` and :class:`DenseGenComplexShiftSolve`
 factor by partial-pivot LU (``torch.linalg.lu_factor_ex``) on the
 matrix's device, as the JAX package does with
@@ -49,8 +50,6 @@ ELL, :func:`dia_device_from_scipy`; a complex matrix is ELL), couple
 their tolerance to the outer one (:func:`couple_inner_tolerance`), and
 NaN-poison a solve whose backward error is too large
 (:func:`_poison_if_unconverged`).
-
-The Hermitian shift-solve waits for its slice (ROADMAP.md item 14).
 """
 
 import dataclasses
@@ -62,7 +61,7 @@ import torch
 
 from spectra_tpu_torch.linalg import bkldlt
 from spectra_tpu_torch.matop.arnoldi_op import ArnoldiOp, LockedArnoldiOp
-from spectra_tpu_torch.matop.dense import _as_tensor, _symmetrize
+from spectra_tpu_torch.matop.dense import _as_tensor, _hermitize, _symmetrize
 from spectra_tpu_torch.ops.gemv import vec_dot
 from spectra_tpu_torch.sparse.formats import symmetrize_scipy
 from spectra_tpu_torch.util.capabilities import resolve_device
@@ -107,10 +106,20 @@ class DenseSymShiftSolve:
             raise ShiftFactorizationError(
                 "factorization failed: sigma is an eigenvalue of the matrix"
             )
-        return DenseSymShiftSolve(mat=self.mat, factors=fac)
+        return dataclasses.replace(self, factors=fac)
 
     def perform_op(self, x):
         return bkldlt.solve(self.factors, x)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DenseHermShiftSolve(DenseSymShiftSolve):
+    """``(A - sigma I)^{-1} x`` for dense complex Hermitian A (sigma
+    real) by the Hermitian BKLDLT; ``create(mat, uplo, device=...)``."""
+
+    @classmethod
+    def create(cls, mat, uplo: str = "L", device=None):
+        return cls(mat=_hermitize(_as_tensor(mat, device), uplo))
 
 
 def _lu_factor(M):
@@ -226,7 +235,7 @@ def couple_inner_tolerance(obj, outer_tol: float):
     if isinstance(obj, ArnoldiOp):
         op = couple_inner_tolerance(obj.op, outer_tol)
         bop = couple_inner_tolerance(obj.bop, outer_tol)
-        return obj if op is obj.op and bop is obj.bop else ArnoldiOp(op, bop)
+        return obj if op is obj.op and bop is obj.bop else type(obj)(op, bop)
     if isinstance(obj, SparseShiftSolveBase):
         if obj.method != "splu" and not obj.inner_rtol_user:
             return dataclasses.replace(

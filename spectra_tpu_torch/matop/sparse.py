@@ -1,14 +1,15 @@
 """Sparse matrix-product operators: the per-iteration hot operation.
 
 Port of :mod:`spectra_tpu.matop.sparse` (reference:
-include/Spectra/MatOp/SparseSymMatProd.h:31-108, SparseGenMatProd.h).
+include/Spectra/MatOp/SparseSymMatProd.h:31-108, SparseGenMatProd.h,
+SparseHermMatProd.h).
 ``create`` accepts a scipy.sparse matrix or a dense numpy array;
 ``format="auto"`` stores banded matrices as DIA (the hand-written
 kernel on the card), large f64 stencils on the card as hi/lo DIA planes
 (:func:`~spectra_tpu_torch.sparse.formats.hilo_route`), and everything
-else as ELLPACK; ``format="dia_hilo"`` asks for the hi/lo planes. The
-reference's
-``Uplo`` triangle selection is applied once on the host.
+else as ELLPACK; ``format="dia_hilo"`` asks for the hi/lo planes. A
+complex matrix is always ELL: the kernel takes f32 and f64. The
+reference's ``Uplo`` triangle selection is applied once on the host.
 
 Every constructor takes ``device``; ``None`` means the GPU and raises
 when there is none.
@@ -103,13 +104,24 @@ class _EllProdBase:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class SparseGenMatProd(_EllProdBase):
-    """y = A x for a general sparse real matrix."""
+    """y = A x for a general sparse (real or complex) matrix."""
 
     ell: object  # EllMatrix, DiaMatrix or DiaHiLoMatrix
 
     @classmethod
     def create(cls, mat, dtype=None, format: str = "auto", device=None):
         return cls(ell=_to_ell(mat, dtype, format, device))
+
+    def perform_trans_op(self, x):
+        """y = A^T x (the partial SVD's Gram operators), a vector."""
+        if self.dtype.is_complex:
+            return self.ell.rmatvec(x.conj()).conj_physical()
+        return self.ell.rmatvec(x)
+
+    def perform_adjoint_op(self, x):
+        """y = A^H x, a vector. On DIA this is the plain shifted-slice
+        sum of ``DiaMatrix.rmatvec``, as in the JAX package."""
+        return self.ell.rmatvec(x)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -140,3 +152,21 @@ class SparseSymMatProd(_EllProdBase):
     def from_full(cls, mat, dtype=None, format: str = "auto", device=None):
         """Build from an already-symmetric full matrix (no triangle read)."""
         return cls(ell=_to_ell(mat, dtype, format, device))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SparseHermMatProd(_EllProdBase):
+    """y = A x for a sparse complex Hermitian matrix, always ELL.
+    ``create(mat, uplo)`` reads only the requested triangle."""
+
+    ell: EllMatrix
+
+    @classmethod
+    def create(cls, mat, uplo: str = "L", dtype=None, device=None):
+        if _is_scipy_sparse(mat):
+            full = symmetrize_scipy(mat, uplo, conjugate=True)
+            return cls(ell=ell_from_scipy(full, dtype=dtype, device=device))
+        full = _dense_triangle(
+            np.asarray(mat, dtype=numpy_dtype(dtype)), uplo, conjugate=True
+        )
+        return cls(ell=ell_from_dense(full, device=device))

@@ -11,7 +11,9 @@ Where the work runs: the n-length work (the factorization's SpMVs,
 projections and the restart rotation of V) runs on the operator's
 device. The small (ncv, ncv) projected problem (tridiagonal eigen,
 shift sweep, Ritz selection, convergence test) runs on the host in
-f64. That is the replicated small dense subproblem of the design
+f64, for a complex Hermitian operator too: its Lanczos projection is
+real (:func:`krylov.init` with ``hermitian=True``), and each restart
+casts the real rotation to the basis's dtype once. That is the replicated small dense subproblem of the design
 (SURVEY.md), not a fallback: it is hundreds of tiny dependent
 operations per restart, which would each be a launch on the card.
 
@@ -187,7 +189,7 @@ def irlm_start(arnop, v0, seed: int, tol: float, *, nev: int, ncv: int,
                selection: SortRule, mode: str,
                restart_method: str = "implicit") -> _LoopCarry:
     """Initial ncv-step factorization + first Ritz extraction."""
-    state = krylov.init(arnop, v0, ncv, seed)
+    state = krylov.init(arnop, v0, ncv, seed, hermitian=True)
     state = krylov.factorize_from(arnop, state, 1, mode)
     return _extract(state, tol, 0, nev, selection, restart_method)
 

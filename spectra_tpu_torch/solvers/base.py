@@ -1,4 +1,4 @@
-"""Driver base class for the symmetric IRLM solvers.
+"""Driver base class for the symmetric and Hermitian IRLM solvers.
 
 Port of :mod:`spectra_tpu.solvers.base` (reference:
 include/Spectra/HermEigsBase.h:44-479): validation, the deterministic
@@ -13,8 +13,9 @@ package. A generalized problem's metric ``bop`` enters through the
 :class:`ArnoldiOp`, and ``_vector_transform`` maps the Krylov vectors
 back to the problem's eigenvectors (the Cholesky mode's ``L^{-H}``).
 
-``eigenvalues()`` returns a numpy array, as in the JAX package;
-``eigenvectors()`` returns a tensor on the operator's device.
+``eigenvalues()`` returns a real numpy array, as in the JAX package;
+``eigenvectors()`` returns a tensor on the operator's device, complex
+for a complex Hermitian operator.
 """
 
 import sys
@@ -47,7 +48,7 @@ def _waits(feature: str, item: int):
 
 
 class HermEigsBase:
-    """Base for the symmetric IRLM solver drivers.
+    """Base for the symmetric and Hermitian IRLM solver drivers.
 
     Subclasses may set ``_ritz_transform`` (a static function
     ``(nu, aux) -> lambda``) and ``_transform_aux`` for an eigenvalue
@@ -58,8 +59,6 @@ class HermEigsBase:
     _ritz_transform = None
 
     def __init__(self, op, nev: int, ncv: int, bop=None):
-        if op.dtype not in (torch.float32, torch.float64):
-            raise _waits("a complex (Hermitian) operator", 14)
         self._op = op
         self._has_bop = bop is not None
         self._arnop = ArnoldiOp.create(op, bop)
@@ -491,7 +490,7 @@ class HermEigsBase:
 
     def eigenvalues(self) -> np.ndarray:
         """Converged eigenvalues (real), in the requested sorting order."""
-        out = numpy_dtype(self._dtype)
+        out = numpy_dtype(dtypes.real_dtype(self._dtype))
         if self._result is None:
             return np.zeros((0,), out)
         res = self._result

@@ -483,3 +483,112 @@ def test_bicgstab_on_dia_operator_on_card(cuda):
     assert (y.cpu() - y_cpu).abs().max() <= 1e-8 * y_cpu.abs().max()
     r = A @ y.cpu().numpy() - b.numpy()
     assert np.linalg.norm(r) <= 1e-10 * np.linalg.norm(b.numpy())
+
+
+def _rand_herm(n, seed=123):
+    rng = np.random.RandomState(seed)
+    A = (rng.uniform(size=(n, n)) - 0.5) + 1j * (rng.uniform(size=(n, n)) - 0.5)
+    return A + A.conj().T
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule", ["LargestAlge", "SmallestMagn"])
+def test_complex_lanczos_on_card_matches_cpu(cuda, rule):
+    """The complex IRLM (``HermEigsSolver``) on the card against the same
+    call on the CPU: nconv, info and the values (1e-10); the complex
+    eigenvectors stay on the card, H is real on the host."""
+    import spectra_tpu_torch as stt
+
+    A = _rand_herm(200)
+    out = []
+    for device in ("cuda", "cpu"):
+        e = stt.HermEigsSolver(stt.DenseHermMatProd.create(A, device=device), 6, 20)
+        e.init()
+        e.compute(getattr(stt.SortRule, rule))
+        out.append(e)
+    card, cpu = out
+    assert card.info() == cpu.info() and card.info().name == "Successful"
+    np.testing.assert_allclose(card.eigenvalues(), cpu.eigenvalues(), rtol=0, atol=1e-10)
+    assert card._result.V.device.type == "cuda" and card._result.V.is_complex()
+    U = card.eigenvectors()
+    assert U.device.type == "cuda" and U.is_complex()
+    U = U.cpu().numpy()
+    assert np.abs(A @ U - U * card.eigenvalues()[None, :]).max() < 1e-9
+
+
+@pytest.mark.cuda
+def test_j_structured_embedding_on_card(cuda):
+    """The J-structured real embedding on the card: the top values of A,
+    and unit complex eigenvectors recovered on the card."""
+    import spectra_tpu_torch as stt
+
+    A = _rand_herm(120, seed=21)
+    op = stt.RealEmbeddedHermMatProd.create(A, device="cuda")
+    e = stt.SymEigsSolver(op, nev=4, ncv=16)
+    e.init()
+    assert e.compute(stt.SortRule.LargestAlge) == 4
+    np.testing.assert_allclose(np.sort(e.eigenvalues()), np.linalg.eigvalsh(A)[-4:],
+                               atol=1e-9)
+    Z = op.recover_eigenvectors(e.eigenvectors())
+    assert Z.device.type == "cuda" and Z.is_complex()
+    Z = Z.cpu().numpy()
+    assert np.abs(A @ Z - Z * e.eigenvalues()[None, :]).max() < 1e-8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["auto", "host"])
+def test_davidson_on_dia_operator_on_card(cuda, monkeypatch, route):
+    """Config #5b's matrix at n = 5,000 on both JD routes on the card:
+    10/10, the CPU's iteration count, values within 1e-9 ||A||, and on
+    the fixed-buffer route one K1 launch per operator call, the blocks
+    of 20 and then 10 columns."""
+    import spectra_tpu_torch as stt
+
+    monkeypatch.setenv("SPECTRA_TPU_JD_DRIVER", route)
+    n = 5000
+    d = np.linspace(1.0, 100.0, n) ** 2
+    A = sps.diags([np.full(n, 0.25), np.full(n, 0.5), d, np.full(n, 0.5),
+                   np.full(n, 0.25)], [-1000, -1, 0, 1, 1000], shape=(n, n), format="csr")
+    out = []
+    for device in ("cuda", "cpu"):
+        op = stt.SparseSymMatProd.from_full(A, device=device)
+        before = dmod.LAUNCHES
+        e = stt.DavidsonSymEigsSolver(op, nev=10)
+        nconv = e.compute(stt.SortRule.LargestAlge, maxit=150, tol=1e-9 * d.max())
+        torch.cuda.synchronize()
+        out.append((e, nconv, dmod.LAUNCHES - before))
+    (card, n_card, launches), (cpu, n_cpu, _) = out
+    assert n_card == n_cpu == 10 and card.info() == stt.CompInfo.Successful
+    assert card.num_iterations() == cpu.num_iterations()
+    assert card.num_operations() == cpu.num_operations()
+    np.testing.assert_allclose(card.eigenvalues(), cpu.eigenvalues(), atol=1e-9 * d.max())
+    assert card.eigenvectors().device.type == "cuda"
+    if route == "auto":
+        assert launches == 1 + (card.num_operations() - 20) // 10
+    else:
+        assert launches >= 1
+
+
+@pytest.mark.cuda
+def test_lobpcg_and_partial_svd_on_card(cuda):
+    """LOBPCG on a DIA Laplacian (K1 on its blocks) and the partial SVD
+    of a dense matrix on the card, against the CPU."""
+    import spectra_tpu_torch as stt
+
+    g = 20
+    lap1 = sps.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(g, g))
+    L = (sps.kron(sps.eye(g), lap1) + sps.kron(lap1, sps.eye(g))).tocsr()
+    X0 = np.random.default_rng(0).normal(size=(g * g, 4))
+    before = dmod.LAUNCHES
+    card = stt.LOBPCGSolver(L, X0, device="cuda")
+    assert card.compute(maxit=300, tol_div_n=1e-10) == 4
+    torch.cuda.synchronize()
+    assert dmod.LAUNCHES > before and card.eigenvectors().device.type == "cuda"
+    np.testing.assert_allclose(np.sort(card.eigenvalues()),
+                               np.sort(np.linalg.eigvalsh(L.toarray()))[:4], atol=1e-8)
+    M = np.random.default_rng(1).normal(size=(300, 200))
+    p = stt.PartialSVDSolver(M, ncomp=4, ncv=12, device="cuda")
+    assert p.compute() == 4
+    np.testing.assert_allclose(p.singular_values(), np.linalg.svd(M, compute_uv=False)[:4],
+                               atol=1e-8)
+    assert p.matrix_U(4).device.type == "cuda"

@@ -83,6 +83,19 @@ def test_entry_points_default_to_the_gpu():
         stt.RealEmbeddedGenMatProd.create(np.eye(4) + 1j * np.eye(4))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         stt.RealEmbeddedGenMatProd.create(sps.eye(4, dtype=complex).tocsr())
+    herm = np.eye(4) + 1j * np.triu(np.ones((4, 4)), 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stt.DenseHermMatProd.create(herm)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stt.SparseHermMatProd.create(sps.csr_matrix(herm))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stt.DenseHermShiftSolve.create(herm)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stt.RealEmbeddedHermMatProd.create(herm)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stt.PartialSVDSolver(np.eye(6), ncomp=2, ncv=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stt.LOBPCGSolver(lap, np.ones((50, 2)))
     op = stt.SparseSymMatProd.from_full(lap, device="cpu")
     assert op.device.type == "cpu"
     s = stt.SymEigsSolver(op, nev=2, ncv=8)
@@ -107,7 +120,10 @@ def test_public_surface():
         "GenEigsComplexShiftSolver", "DenseGenRealShiftSolve",
         "DenseGenComplexShiftSolve", "SparseGenRealShiftSolve",
         "SparseGenComplexShiftSolve", "RealEmbeddedGenMatProd",
-        "RotatedEmbeddedGenMatProd",
+        "RotatedEmbeddedGenMatProd", "DenseHermMatProd", "SparseHermMatProd",
+        "DenseHermShiftSolve", "RealEmbeddedHermMatProd", "HermEigsSolver",
+        "JDSymEigsBase", "DavidsonSymEigsSolver", "PartialSVDSolver",
+        "LOBPCGSolver",
     }
     assert all(hasattr(stt, name) for name in stt.__all__)
     A = sps.random(20, 20, density=0.3, random_state=0, format="csr")
