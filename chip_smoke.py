@@ -12,7 +12,8 @@ Phases, each printing JSON lines and its wall time:
 2. the streaming probe ``y = 2 x`` over 2^28 f32 (1 GiB), bitwise
    against ``x * 2`` and timed beside ``torch.mul(x, 2)``: the card's
    measured bytes per second beside the data sheet;
-3. K1 (the DIA SpMV), f64 and f32, vector and matmat, and P3
+3. K1 (the DIA SpMV), f64 and f32, vector and matmat (2 to 33
+   columns), and P3
    ``dia_noshift`` (K1's body without the shifted reads) bitwise against
    their plain PyTorch versions on the card, random data at the
    out-of-range positions included;
@@ -90,8 +91,10 @@ Phases, each printing JSON lines and its wall time:
     on config #4's operator at g=100 (K1), LOBPCG for the 10 smallest of
     the g=100 Laplacian (K1 on blocks) and with deflation constraints;
 11l. K1 on 10- and 20-column f64 blocks at config #5b's shapes (n =
-    250,000 and 10^6), bitwise against its plain version, timed beside
-    its bound, plain version and the ``torch.sparse`` CSR block product;
+    250,000 and 10^6), on LOBPCG's 10 columns at n = 10^4 and on the
+    partial SVD's vectors and 5 columns at n = 10^4, bitwise against its
+    plain version, timed beside its bound, plain version and the
+    ``torch.sparse`` CSR product;
 12. the north star as ``scripts/tpu_northstar_100m.py:158-174`` runs
     it: shift-invert with the multigrid inner solve, the stepped driver
     and ``compute_locked`` for the 20 smallest eigenvalues, counted with
@@ -113,8 +116,9 @@ the port is imported, never jax or the JAX package.
 
 runs only the environment phase and K1, P3 and P4 of the checkout at
 ``CHECKOUT``, through its own wrappers, against this tree's, in turns
-(parent, change, change, parent), at every K1 shape of the paths, P5's,
-P3's and P4's (rows 32 and 256) and the launch floor.
+(parent, change, change, parent), at every K1 shape of the paths
+(vectors and the blocks of 11l), P5's, P3's and P4's (rows 32 and 256)
+and the launch floor.
 """
 
 import json
@@ -440,7 +444,10 @@ def check_kernel(torch, dmod, vmod, pf):
             mats[label] = random_dia(torch, pf, rows, cols, offs, dtype)
         inputs = [(k, m, torch.randn(m.n_cols, dtype=dtype, device="cuda"))
                   for k, m in mats.items()]
-        for label, cols in (("laplacian_2d_g1000", 10), ("stencil27_random_g31", 10)):
+        for label, cols in (("laplacian_2d_g1000", 10), ("stencil27_random_g31", 10),
+                            ("laplacian_2d_g1000", 20), ("rect_40x55_random", 3),
+                            ("rect_55x40_random", 33), ("d64_random_n200001", 2),
+                            ("n777_offsets_-3_0_1", 20), ("banded_17_diagonals", 2)):
             m = mats[label]
             inputs.append((f"matmat_{cols}_columns_{label}", m, torch.randn(
                 (m.n_cols, cols), dtype=dtype, device="cuda")))
@@ -2143,37 +2150,51 @@ def run_contrib(torch, stt, dmod):
         raise RuntimeError(f"LOBPCG with constraints at g=32: {nconv}/2, error {err}")
 
 
+#: K1's shapes on the JD and contrib paths, as (label, n, matrix, column
+#: counts; 1 is a vector): config #5b's operator (Davidson's 20- then
+#: 10-column blocks), LOBPCG's g=100 Laplacian (10 columns) and the
+#: partial SVD's g=100 convection operator (its IRLM's vectors, and the
+#: 5 columns of ``_cross``).
+K1_CONTRIB_SHAPES = (
+    ("config5b", 250_000, lambda: config5b_matrix(250_000)[0], (10, 20)),
+    ("config5b", 1_000_000, lambda: config5b_matrix(1_000_000)[0], (10, 20)),
+    ("lobpcg_g100", 100**2, lambda: laplacian_2d(100), (10,)),
+    ("partial_svd_g100", 100**2, lambda: config4_matrix(100), (1, 5)),
+)
+
+
 def phase_k1_blocks(torch, dmod, pf, rates, floor):
-    """K1 on column blocks, first timed here: config #5b's operator (d=5)
-    at n = 250,000 and 10^6 on 10 and 20 f64 columns, bitwise against
-    its plain version on the card, then timed cold beside its bound
-    (data, X and Y once each), its plain version and one ``torch.sparse``
-    CSR product with the dense block."""
+    """K1 at ``K1_CONTRIB_SHAPES`` (d=5, f64), bitwise against its plain
+    version on the card, then timed cold beside its bound (data, X and Y
+    once each), its plain version and one ``torch.sparse`` CSR product
+    with the dense block or vector."""
     bandwidth, f64_rate, _ = rates
     timer = Timer(torch)
     out = {}
-    for n in (250_000, 1_000_000):
-        A, _ = config5b_matrix(n)
+    for matrix, n, build, columns in K1_CONTRIB_SHAPES:
+        A = build()
         m = pf.dia_from_scipy(A)
         csr = torch_csr(torch, A, np.float64)
         d = len(m.offsets)
-        for ncol in (10, 20):
-            X = torch.randn((n, ncol), dtype=torch.float64, device="cuda")
-            Y = m.matmat(X)
+        for ncol in columns:
+            X = torch.randn(n if ncol == 1 else (n, ncol), dtype=torch.float64, device="cuda")
+            product = m.matvec if ncol == 1 else m.matmat
+            Y = product(X)
             if not torch.equal(Y, dmod.dia_spmv_plain(m.data, m.offsets, X, n)):
-                raise RuntimeError(f"K1 is not bitwise its plain version on a "
-                                   f"{ncol}-column block at n={n}")
+                raise RuntimeError(f"K1 is not bitwise its plain version on "
+                                   f"{ncol} columns at n={n}")
             t = timed_entry(
-                timer, lambda: m.matmat(X),
+                timer, lambda: product(X),
                 lambda: dmod.dia_spmv_plain(m.data, m.offsets, X, n),
                 lambda: csr @ X, (d * n + 2 * n * ncol) * 8, 2 * A.nnz * ncol,
                 f64_rate, bandwidth, back_to_back=True,
             )
-            t.update(kernel="dia_spmv", n=n, d=d, ncol=ncol, nnz=int(A.nnz),
-                     floor_ms=floor["ms"], config=dmod.card_launch(n, ncol, 0),
-                     enqueue_us=enqueue_us(torch, lambda: m.matmat(X)), max_abs_err=0.0)
+            t.update(kernel="dia_spmv", matrix=matrix, n=n, d=d, ncol=ncol,
+                     nnz=int(A.nnz), floor_ms=floor["ms"],
+                     config=dmod.card_launch(n, ncol, 0),
+                     enqueue_us=enqueue_us(torch, lambda: product(X)), max_abs_err=0.0)
             emit(phase="k1_block_timing", **t)
-            out[f"n{n}_c{ncol}"] = t
+            out[f"{matrix}_n{n}_c{ncol}"] = t
         del m, csr
         torch.cuda.empty_cache()
     return out
@@ -2418,7 +2439,9 @@ def compare_parent(torch, dmod, vmod, pf, rates, parent):
     random data), config #2's (the 2-D g=1000 Laplacian, f64 and f32,
     and P3 and P4, at rows of ``P4_PARENT_ROWS``, on it in f32), the
     g=243 operator (7-point, random data, f64
-    as mode A and f32 as P5) and the launch floor (n=1, d=1). Each turn:
+    as mode A and f32 as P5), the launch floor (n=1, d=1) and the shapes
+    of ``K1_CONTRIB_SHAPES`` (f64 blocks of 5 to 20 columns, and the
+    partial SVD's vectors). Each turn:
     cold median, min, max (L2 flushed, 40 calls), back to back (200
     calls in one CUDA graph) and the host's enqueue time per call
     (``enqueue_us``, the wrapper included). Both outputs must be bitwise
@@ -2429,25 +2452,30 @@ def compare_parent(torch, dmod, vmod, pf, rates, parent):
     old_k1, old_vmod = parent_ops(torch, parent)
     g2 = laplacian_2d(G_FULL)
     offs243 = (-G_NORTH**2, -G_NORTH, -1, 0, 1, G_NORTH, G_NORTH**2)
-    shapes = [(f"level{lv}_g{g}", g**3, stencil27(g), torch.float64, "dia_spmv")
+    lap = lambda: g2
+    # (label, n, matrix: offsets of random data or a builder, dtype,
+    # kernel, columns)
+    shapes = [(f"level{lv}_g{g}", g**3, stencil27(g), torch.float64, "dia_spmv", 1)
               for lv, g in K1_LEVELS]
-    shapes += [("config2_f64", G_FULL**2, None, torch.float64, "dia_spmv"),
-               ("config2_f32", G_FULL**2, None, torch.float32, "dia_spmv"),
-               ("p3_config2_f32", G_FULL**2, None, torch.float32, "dia_noshift"),
-               *((f"p4_config2_f32_r{r}", G_FULL**2, None, torch.float32, f"dia_roll2d_r{r}")
-                 for r in P4_PARENT_ROWS),
-               ("g243_operator", G_NORTH**3, offs243, torch.float64, "dia_spmv"),
-               ("p5_g243_f32", G_NORTH**3, offs243, torch.float32, "dia_spmv"),
-               ("launch_floor", 1, (0,), torch.float64, "dia_spmv")]
+    shapes += [("config2_f64", G_FULL**2, lap, torch.float64, "dia_spmv", 1),
+               ("config2_f32", G_FULL**2, lap, torch.float32, "dia_spmv", 1),
+               ("p3_config2_f32", G_FULL**2, lap, torch.float32, "dia_noshift", 1),
+               *((f"p4_config2_f32_r{r}", G_FULL**2, lap, torch.float32,
+                  f"dia_roll2d_r{r}", 1) for r in P4_PARENT_ROWS),
+               ("g243_operator", G_NORTH**3, offs243, torch.float64, "dia_spmv", 1),
+               ("p5_g243_f32", G_NORTH**3, offs243, torch.float32, "dia_spmv", 1),
+               ("launch_floor", 1, (0,), torch.float64, "dia_spmv", 1),
+               *((f"{matrix}_n{n}_c{ncol}", n, build, torch.float64, "dia_spmv", ncol)
+                 for matrix, n, build, columns in K1_CONTRIB_SHAPES for ncol in columns)]
     out = {}
-    for label, n, offs, dtype, kernel in shapes:
-        if offs is None:
-            m = pf.dia_from_scipy(g2, dtype=dtype)
+    for label, n, source, dtype, kernel, ncol in shapes:
+        if callable(source):
+            m = pf.dia_from_scipy(source(), dtype=dtype)
         else:
-            m = random_dia(torch, pf, n, n, offs, dtype)
-        x = torch.randn(n, dtype=dtype, device="cuda")
+            m = random_dia(torch, pf, n, n, source, dtype)
+        x = torch.randn(n if ncol == 1 else (n, ncol), dtype=dtype, device="cuda")
         offs, d = m.offsets, len(m.offsets)
-        config = dmod.card_launch(n, 1, 0)
+        config = dmod.card_launch(n, ncol, 0)
         if kernel == "dia_noshift":
             calls = dict(parent=lambda: old_vmod.dia_noshift(m.data, offs, x),
                          change=lambda: vmod.dia_noshift(m.data, offs, x))
@@ -2470,10 +2498,11 @@ def compare_parent(torch, dmod, vmod, pf, rates, parent):
         csr = None if kernel == "dia_noshift" else dia_csr(torch, pf, m)
         terms = d * n if kernel == "dia_noshift" else sum(n - abs(o) for o in offs)
         rate = f64_rate if dtype == torch.float64 else f32_rate
-        bound_ms = max((d + 2) * x.element_size() * n / bandwidth, 2 * terms / rate) * 1e3
+        bound_ms = max((d + 2 * ncol) * x.element_size() * n / bandwidth,
+                       2 * terms * ncol / rate) * 1e3
         mean = lambda who, key: float(np.mean([t[key] for t in turns[who]]))
         out[label] = dict(
-            kernel=kernel, n=n, d=d, dtype=str(dtype).split(".")[1],
+            kernel=kernel, n=n, d=d, ncol=ncol, dtype=str(dtype).split(".")[1],
             bitwise_equal_parent=bitwise, config=config,
             parent=turns["parent"], change=turns["change"],
             parent_ms=mean("parent", "ms"), change_ms=mean("change", "ms"),

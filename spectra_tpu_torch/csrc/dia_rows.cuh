@@ -41,8 +41,7 @@
 //
 // Grid: thread t of block b takes row (b + s * gridDim.x) * blockDim.x +
 // t on trip s of a grid-stride loop, so each warp's loads are coalesced.
-// For a block of columns (kMat, the matmat) X and Y hold element (i, c)
-// at i * ncol + c and blockIdx.y selects the column.
+// One vector only: K1 on a block of columns is dia_block.cuh.
 
 #pragma once
 
@@ -69,7 +68,6 @@ struct Args {
   T* y;
   int64_t n_rows;
   int64_t n_cols;
-  int64_t ncol;
   int64_t min_off;
   int64_t max_off;
 };
@@ -116,25 +114,25 @@ struct Stage {
   int x_at;    // group_size(kD) * blockDim.x
 };
 
-// Column j of x (column c of a block), clamped into [0, n_cols) with
-// kGuard; `in` says whether j itself lies there.
-template <typename T, bool kMat, bool kGuard>
+// Column j of x, clamped into [0, n_cols) with kGuard; `in` says
+// whether j itself lies there.
+template <typename T, bool kGuard>
 __device__ __forceinline__ const T* x_at(const Args<T>& A, int64_t j,
-                                         int64_t c, bool& in) {
+                                         bool& in) {
   in = true;
   if constexpr (kGuard) {
     in = j >= 0 && j < A.n_cols;
     j = j < 0 ? 0 : (j < A.n_cols ? j : A.n_cols - 1);
   }
-  return A.x + (kMat ? j * A.ncol + c : j);
+  return A.x + j;
 }
 
 // Diagonals k0 .. k0 + kG - 1 of row i: all loads, then the terms in
 // offset order.
-template <typename T, int kG, bool kShift, bool kMat, bool kGuard, bool kAsync>
+template <typename T, int kG, bool kShift, bool kGuard, bool kAsync>
 __device__ __forceinline__ void diag_group(const Args<T>& A,
                                            const Offsets& offs, int k0,
-                                           int64_t i, int64_t c, T xi,
+                                           int64_t i, T xi,
                                            const Stage<T>& st, T& acc) {
   T a[kG];
   T b[kG];
@@ -144,7 +142,7 @@ __device__ __forceinline__ void diag_group(const Args<T>& A,
       copy_async(st.base + g * st.stride, A.data + (k0 + g) * A.n_rows + i, true);
       if constexpr (kShift) {
         bool in;
-        const T* src = x_at<T, kMat, kGuard>(A, i + offs.off[k0 + g], c, in);
+        const T* src = x_at<T, kGuard>(A, i + offs.off[k0 + g], in);
         copy_async(st.base + st.x_at + g * st.stride, src, in);
       }
     }
@@ -161,7 +159,7 @@ __device__ __forceinline__ void diag_group(const Args<T>& A,
     for (int g = 0; g < kG; ++g) {
       if constexpr (kShift) {
         bool in;
-        const T v = __ldg(x_at<T, kMat, kGuard>(A, i + offs.off[k0 + g], c, in));
+        const T v = __ldg(x_at<T, kGuard>(A, i + offs.off[k0 + g], in));
         b[g] = in ? v : T(0);
       } else {
         b[g] = xi;
@@ -177,52 +175,46 @@ __device__ __forceinline__ void diag_group(const Args<T>& A,
 
 // Row i. kD > 0: the diagonal count, known at compile time; 0:
 // offs.count.
-template <typename T, int kD, bool kShift, bool kMat, bool kGuard, bool kAsync>
+template <typename T, int kD, bool kShift, bool kGuard, bool kAsync>
 __device__ __forceinline__ T row_body(const Args<T>& A, const Offsets& offs,
-                                      int64_t i, int64_t c,
-                                      const Stage<T>& st) {
+                                      int64_t i, const Stage<T>& st) {
   const T xi = kShift ? T(0) : __ldg(A.x + i);
   T acc = T(0);
   if constexpr (kD > 0) {
-    diag_group<T, kD, kShift, kMat, kGuard, kAsync>(A, offs, 0, i, c, xi, st,
-                                                    acc);
+    diag_group<T, kD, kShift, kGuard, kAsync>(A, offs, 0, i, xi, st, acc);
   } else {
     int k0 = 0;
     for (; k0 + kGenericGroup <= offs.count; k0 += kGenericGroup) {
-      diag_group<T, kGenericGroup, kShift, kMat, kGuard, kAsync>(A, offs, k0, i,
-                                                                 c, xi, st, acc);
+      diag_group<T, kGenericGroup, kShift, kGuard, kAsync>(A, offs, k0, i, xi,
+                                                           st, acc);
     }
     for (; k0 < offs.count; ++k0) {
-      diag_group<T, 1, kShift, kMat, kGuard, kAsync>(A, offs, k0, i, c, xi, st,
-                                                     acc);
+      diag_group<T, 1, kShift, kGuard, kAsync>(A, offs, k0, i, xi, st, acc);
     }
   }
   return acc;
 }
 
-template <typename T, int kD, bool kShift, bool kMat, bool kAsync>
+template <typename T, int kD, bool kShift, bool kAsync>
 __global__ void __launch_bounds__(kMaxThreads)
     dia_rows_kernel(const __grid_constant__ Args<T> A,
                     const __grid_constant__ Offsets offs) {
   extern __shared__ __align__(16) unsigned char stage_bytes[];
   const Stage<T> st{reinterpret_cast<T*>(stage_bytes) + threadIdx.x,
                     int(blockDim.x), group_size(kD) * int(blockDim.x)};
-  const int64_t c = kMat ? int64_t(blockIdx.y) : 0;
   for (int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
        i < A.n_rows; i += int64_t(gridDim.x) * blockDim.x) {
     const bool inside =
         !kShift || (i + A.min_off >= 0 && i + A.max_off < A.n_cols);
-    const T y =
-        inside ? row_body<T, kD, kShift, kMat, false, kAsync>(A, offs, i, c, st)
-               : row_body<T, kD, kShift, kMat, true, kAsync>(A, offs, i, c, st);
-    A.y[kMat ? i * A.ncol + c : i] = y;
+    A.y[i] = inside ? row_body<T, kD, kShift, false, kAsync>(A, offs, i, st)
+                    : row_body<T, kD, kShift, true, kAsync>(A, offs, i, st);
   }
 }
 
-template <typename T, int kD, bool kShift, bool kMat, bool kAsync>
-cudaError_t start(const Args<T>& A, const Offsets& offs, dim3 grid,
+template <typename T, int kD, bool kShift, bool kAsync>
+cudaError_t start(const Args<T>& A, const Offsets& offs, int blocks,
                   int threads, cudaStream_t stream) {
-  auto* kernel = dia_rows_kernel<T, kD, kShift, kMat, kAsync>;
+  auto* kernel = dia_rows_kernel<T, kD, kShift, kAsync>;
   size_t smem = 0;
   if constexpr (kAsync) {
     smem = size_t(2) * group_size(kD) * threads * sizeof(T);
@@ -232,57 +224,57 @@ cudaError_t start(const Args<T>& A, const Offsets& offs, dim3 grid,
       if (err != cudaSuccess) return err;
     }
   }
-  kernel<<<grid, threads, smem, stream>>>(A, offs);
+  kernel<<<blocks, threads, smem, stream>>>(A, offs);
   return cudaGetLastError();
 }
 
 template <typename T, bool kShift, bool kAsync>
-cudaError_t start_vector(const Args<T>& A, const Offsets& offs, dim3 grid,
+cudaError_t start_vector(const Args<T>& A, const Offsets& offs, int blocks,
                          int threads, cudaStream_t stream) {
   switch (offs.count) {
-    case 5: return start<T, 5, kShift, false, kAsync>(A, offs, grid, threads, stream);
-    case 7: return start<T, 7, kShift, false, kAsync>(A, offs, grid, threads, stream);
-    case 9: return start<T, 9, kShift, false, kAsync>(A, offs, grid, threads, stream);
-    case 27: return start<T, 27, kShift, false, kAsync>(A, offs, grid, threads, stream);
-    default: return start<T, 0, kShift, false, kAsync>(A, offs, grid, threads, stream);
+    case 5: return start<T, 5, kShift, kAsync>(A, offs, blocks, threads, stream);
+    case 7: return start<T, 7, kShift, kAsync>(A, offs, blocks, threads, stream);
+    case 9: return start<T, 9, kShift, kAsync>(A, offs, blocks, threads, stream);
+    case 27: return start<T, 27, kShift, kAsync>(A, offs, blocks, threads, stream);
+    default: return start<T, 0, kShift, kAsync>(A, offs, blocks, threads, stream);
   }
+}
+
+constexpr bool block_size_ok(int threads) {
+  return threads == 32 || threads == 64 || threads == 128 || threads == 256;
+}
+
+// The kernel's copy of `count` offsets, and their least and greatest.
+inline Offsets fill_offsets(const int64_t* offsets, int count,
+                            int64_t& min_off, int64_t& max_off) {
+  Offsets offs;
+  offs.count = count;
+  min_off = max_off = offsets[0];
+  for (int k = 0; k < count; ++k) {
+    offs.off[k] = offsets[k];
+    if (offsets[k] < min_off) min_off = offsets[k];
+    if (offsets[k] > max_off) max_off = offsets[k];
+  }
+  return offs;
 }
 
 // Checks the launch, fills the offsets and their range and starts the
 // kernel on `stream`: threads in {32, 64, 128, 256}, staged (1) or not
-// (0); a block of columns (ncol > 1, K1 only) takes the register path.
+// (0).
 template <typename T, bool kShift>
 int launch(Args<T> A, const int64_t* offsets, int count, int threads,
            int staged, void* stream) {
-  const bool block_ok = threads == 32 || threads == 64 || threads == 128 ||
-                        threads == 256;
   if (count < 1 || count > kMaxDiags || A.n_rows < 1 || A.n_cols < 1 ||
-      A.ncol < 1 || A.ncol > 65535 || !block_ok || staged < 0 || staged > 1 ||
-      (A.ncol > 1 && (staged || !kShift))) {
+      !block_size_ok(threads) || staged < 0 || staged > 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Offsets offs;
-  offs.count = count;
-  A.min_off = A.max_off = offsets[0];
-  for (int k = 0; k < count; ++k) {
-    offs.off[k] = offsets[k];
-    if (offsets[k] < A.min_off) A.min_off = offsets[k];
-    if (offsets[k] > A.max_off) A.max_off = offsets[k];
-  }
+  const Offsets offs = fill_offsets(offsets, count, A.min_off, A.max_off);
   int64_t blocks = (A.n_rows + threads - 1) / threads;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  const dim3 grid(static_cast<unsigned>(blocks),
-                  static_cast<unsigned>(A.ncol));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if constexpr (kShift) {
-    if (A.ncol > 1) {
-      return static_cast<int>(
-          start<T, 0, true, true, false>(A, offs, grid, threads, st));
-    }
-  }
   return static_cast<int>(
-      staged ? start_vector<T, kShift, true>(A, offs, grid, threads, st)
-             : start_vector<T, kShift, false>(A, offs, grid, threads, st));
+      staged ? start_vector<T, kShift, true>(A, offs, int(blocks), threads, st)
+             : start_vector<T, kShift, false>(A, offs, int(blocks), threads, st));
 }
 
 }  // namespace spectra_dia

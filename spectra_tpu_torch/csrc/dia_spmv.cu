@@ -8,8 +8,9 @@
 //
 // where x counts as zero outside [0, n_cols), summed in offset order
 // from +0, as the plain PyTorch version computes it on its zero-padded
-// x. X and Y may hold several columns (matmat). The body is
-// dia_rows.cuh, shared with the cost probe P3 (dia_variants.cu).
+// x. One vector runs dia_rows.cuh, shared with the cost probe P3
+// (dia_variants.cu); a block of columns X (n_cols, ncol), the matmat,
+// runs dia_block.cuh (the block path, last paragraphs below).
 //
 // What bounds it: memory. Each output row does d multiply-adds against
 // d + 2 values moved, so for d diagonals and n rows the function must
@@ -53,30 +54,73 @@
 // version and 24.9 for this one in registers (bound 15.7, the floor
 // alone 5.9): there the rows hide the latency either way.
 //
+// The block path. What bounds it: memory, (d * n_rows + n_cols * ncol
+// + n_rows * ncol) * sizeof(T) bytes (data, X and Y once each): 360 MB
+// in f64 for config #5b's d = 5 at n = 10^6 on 20 columns, 107.5 us at
+// 3.35 TB/s. What held the first version back: one thread per (row,
+// column) with the column on gridDim.y, so a warp's X loads and Y
+// stores strode by ncol * 8 bytes (one 32-byte sector per value) and
+// every diagonal's data was read ncol times, from separate grid planes.
+// What the design does (dia_block.cuh): X and Y are flat row-major
+// arrays, so each diagonal's X loads and the Y stores are contiguous
+// 16-byte packs; a CTA takes a tile of rows with all its columns and
+// stages the tile's data once in shared memory by cp.async; a thread's
+// X loads go out before it waits for that copy; the plan
+// (ops/dia_spmv.py::launch_config) gives a tile about 512 elements and
+// each of the 132 SMs at least two CTAs. The far offsets' X is read
+// from L2, not staged: the tiles it lies on are in flight too.
+//
+// On an NVIDIA H100 80GB HBM3 at 700 W (PERF.md; chip_smoke.py
+// --k1-parent, the first version and this one in turns in one run; cold
+// medians, f64, d = 5): config #5b's 250,000 x 10 / x 20 139.8 -> 21.7
+// / 434.1 -> 36.2 us and 10^6 x 10 / x 20 581.5 -> 73.6 / 1,730.7 ->
+// 133.3 (69-81 % of the bound; the CSR call 152.0 / 165.1 / 437.5 /
+// 486.9); LOBPCG's 10^4 x 10 8.7 -> 6.3 (the launch floor 5.4).
+//
 // Numerics: every term is __dmul_rn/__fmul_rn then __dadd_rn/__fadd_rn,
 // never contracted, so the result is bitwise the plain version's (and
 // the library is built with -fmad=false as well).
 
-#include "dia_rows.cuh"
+#include "dia_block.cuh"
 
 extern "C" {
 
+// One vector: x (n_cols,), y (n_rows,).
 int spectra_dia_spmv_f64(const double* data, const double* x, double* y,
-                         int64_t n_rows, int64_t n_cols, int64_t ncol,
+                         int64_t n_rows, int64_t n_cols,
                          const int64_t* offsets, int count, int threads,
                          int staged, void* stream) {
-  spectra_dia::Args<double> A{data, x, y, n_rows, n_cols, ncol, 0, 0};
+  spectra_dia::Args<double> A{data, x, y, n_rows, n_cols, 0, 0};
   return spectra_dia::launch<double, true>(A, offsets, count, threads,
                                            staged, stream);
 }
 
 int spectra_dia_spmv_f32(const float* data, const float* x, float* y,
-                         int64_t n_rows, int64_t n_cols, int64_t ncol,
+                         int64_t n_rows, int64_t n_cols,
                          const int64_t* offsets, int count, int threads,
                          int staged, void* stream) {
-  spectra_dia::Args<float> A{data, x, y, n_rows, n_cols, ncol, 0, 0};
+  spectra_dia::Args<float> A{data, x, y, n_rows, n_cols, 0, 0};
   return spectra_dia::launch<float, true>(A, offsets, count, threads,
                                           staged, stream);
+}
+
+// A block: X (n_cols, ncol), Y (n_rows, ncol), row-major.
+int spectra_dia_block_f64(const double* data, const double* x, double* y,
+                          int64_t n_rows, int64_t n_cols, int64_t ncol,
+                          const int64_t* offsets, int count, int threads,
+                          int tile_rows, void* stream) {
+  spectra_dia::BlockArgs<double> A{data, x, y, n_rows, n_cols, ncol, 0,
+                                   tile_rows, 0, 0, 0};
+  return spectra_dia::launch_block<double>(A, offsets, count, threads, stream);
+}
+
+int spectra_dia_block_f32(const float* data, const float* x, float* y,
+                          int64_t n_rows, int64_t n_cols, int64_t ncol,
+                          const int64_t* offsets, int count, int threads,
+                          int tile_rows, void* stream) {
+  spectra_dia::BlockArgs<float> A{data, x, y, n_rows, n_cols, ncol, 0,
+                                  tile_rows, 0, 0, 0};
+  return spectra_dia::launch_block<float>(A, offsets, count, threads, stream);
 }
 
 }  // extern "C"

@@ -369,7 +369,7 @@ int spectra_dia_noshift_f32(const float* data, const float* x, float* y,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int64_t zeros[kMaxDiags] = {};
-  spectra_dia::Args<float> A{data, x, y, n, n, 1, 0, 0};
+  spectra_dia::Args<float> A{data, x, y, n, n, 0, 0};
   return spectra_dia::launch<float, false>(A, zeros, count, threads, staged,
                                            stream);
 }

@@ -185,8 +185,11 @@ def _stencil9_offsets(g):
 # north star's (d = 27 at 31^3 and 16^3); non-square. On a 132-SM card
 # the vectors reach every launch that ``launch_config`` picks: staged
 # with 32 threads (n <= 16,832), 64 (31^3), 128 (250^2) and 256
-# (2^17 - 1), in registers with 256 (2^17 + 1, 500^2); the matmats
-# reach the register path at every block size.
+# (2^17 - 1), in registers with 256 (2^17 + 1, 500^2); the matmats on
+# ``K1_BLOCK_COLUMNS`` reach every block size of the block kernel, tiles
+# bounded by each of the plan's three limits, every pack width (16, 8
+# and 4 bytes in f32; 16 and 8 in f64) and more than one trip a thread
+# over a tile (3 columns at 250^2 in f64).
 K1_CASES = [
     ("n1_d1", 1, 1, (0,)),
     ("n2_d5", 2, 2, (-2, -1, 0, 1, 2)),
@@ -209,6 +212,8 @@ K1_CASES = [
     ("rect_40x55", 40, 55, (-7, -1, 0, 2, 9)),
     ("rect_55x40", 55, 40, (-7, -1, 0, 2, 9)),
 ]
+#: Columns of the matmats of ``K1_CASES``.
+K1_BLOCK_COLUMNS = (2, 3, 10, 20)
 
 
 @pytest.mark.cuda
@@ -219,8 +224,8 @@ K1_CASES = [
 def test_k1_and_p3_bitwise_on_card(cuda, dtype, label, n_rows, n_cols, offsets):
     """K1 bitwise against its plain version with random data in every
     position (the out-of-range ones included), at the launch the wrapper
-    picks, and its matmat; P3 on K1's body bitwise against its plain
-    version (square f32 cases)."""
+    picks, and its matmat on 2, 3, 10 and 20 columns; P3 on K1's body
+    bitwise against its plain version (square f32 cases)."""
     rng = np.random.default_rng(n_rows * len(offsets))
     data = torch.from_numpy(rng.standard_normal((len(offsets), n_rows))).to(
         dtype=dtype, device="cuda"
@@ -231,11 +236,13 @@ def test_k1_and_p3_bitwise_on_card(cuda, dtype, label, n_rows, n_cols, offsets):
     torch.cuda.synchronize()
     assert dmod.LAUNCHES == before + 1
     assert torch.equal(y, dmod.dia_spmv_plain(data, offsets, x, n_cols))
-    X = torch.randn((n_cols, 3), dtype=dtype, device="cuda")
-    assert torch.equal(
-        dmod.dia_spmv(data, offsets, X, n_cols),
-        dmod.dia_spmv_plain(data, offsets, X, n_cols),
-    )
+    for ncol in K1_BLOCK_COLUMNS:
+        X = torch.randn((n_cols, ncol), dtype=dtype, device="cuda")
+        before = dmod.LAUNCHES
+        Y = dmod.dia_spmv(data, offsets, X, n_cols)
+        torch.cuda.synchronize()
+        assert dmod.LAUNCHES == before + 1
+        assert torch.equal(Y, dmod.dia_spmv_plain(data, offsets, X, n_cols))
     if dtype == torch.float32 and n_rows == n_cols:
         before = dv.LAUNCHES["dia_noshift"]
         y = dv.dia_noshift(data, offsets, x)
@@ -247,14 +254,21 @@ def test_k1_and_p3_bitwise_on_card(cuda, dtype, label, n_rows, n_cols, offsets):
 @pytest.mark.cuda
 def test_k1_cases_reach_every_launch(cuda):
     """The cases above reach every launch the wrapper picks for a vector
-    (each block size staged, 256 threads in registers) and every block
-    size of the matmat's register path, on the 132-SM card they are
-    sized for."""
+    (each block size staged, 256 threads in registers) and, on
+    ``K1_BLOCK_COLUMNS``, every block plan: each block size, and tiles
+    bounded by each of ``TILE_ROWS_MAX``, ``TILE_ELEMENTS // ncol`` and
+    the two tiles an SM, on the 132-SM card they are sized for."""
     if torch.cuda.get_device_properties(0).multi_processor_count != 132:
         pytest.skip("the cases are sized for a 132-SM card (H100 SXM)")
     want = {(t, True) for t in dmod.BLOCK_SIZES} | {(256, False)}
     assert want <= {dmod.card_launch(n, 1, 0) for _, n, _, _ in K1_CASES}
-    assert set(dmod.BLOCK_SIZES) <= {dmod.card_launch(n, 3, 0)[0] for _, n, _, _ in K1_CASES}
+    blocks = [(n, c, dmod.card_launch(n, c, 0)) for _, n, _, _ in K1_CASES
+              for c in K1_BLOCK_COLUMNS]
+    assert set(dmod.BLOCK_SIZES) <= {threads for _, _, (threads, _) in blocks}
+    bounds = lambda n, c: {"rows": dmod.TILE_ROWS_MAX, "fill": -(-n // 264),
+                           "elements": max(1, dmod.TILE_ELEMENTS // c)}
+    reached = {k for n, c, (_, rows) in blocks for k, v in bounds(n, c).items() if rows == v}
+    assert reached == {"rows", "elements", "fill"}
 
 
 @pytest.mark.cuda

@@ -142,7 +142,125 @@ def test_launch_config_covers_every_row_once(n):
     for b in (blocks, max(1, blocks // 7)):
         got = np.sort(_kernel_rows(n, threads, b))
         np.testing.assert_array_equal(got, np.arange(n))
-    assert dmod.launch_config(n, 4, SMS)[:2] == (threads, False)
+
+
+def _pack_width(ncol, itemsize):
+    """Elements of the block kernel's pack (``csrc/dia_block.cuh``
+    ``pack_width``, for aligned x and y): the widest of 16, 8 or
+    ``itemsize`` bytes that divides a row."""
+    return next(v for v in (16 // itemsize, 8 // itemsize, 1) if ncol % v == 0)
+
+
+def _block_walk(n_rows, ncol, plan, width):
+    """The block kernel's walk: CTA b takes tiles b, b + blocks, ... of
+    ``tile_rows`` rows; its threads take packs t, t + threads, ... of a
+    tile, pack p being flat elements ``r0 * ncol + p * width`` on, all
+    in row ``r0 + p * width // ncol``. Yields ``(tile, r0, rows, row,
+    first element)`` per tile, the last two as arrays over its packs."""
+    tiles = -(-n_rows // plan.tile_rows)
+    for b in range(plan.blocks):
+        for tile in range(b, tiles, plan.blocks):
+            r0 = tile * plan.tile_rows
+            rows = min(plan.tile_rows, n_rows - r0)
+            p = np.arange(rows * (ncol // width))
+            yield tile, r0, rows, r0 + p * width // ncol, r0 * ncol + p * width
+
+
+#: (n_rows, ncol) of the block path: config #5b's shapes, LOBPCG's, and
+#: a few more.
+BLOCK_SHAPES = [(250_000, 10), (250_000, 20), (10**6, 10), (10**6, 20), (10**4, 10)]
+
+
+@pytest.mark.parametrize("ncol", [2, 3, 10, 20, 33, 700])
+@pytest.mark.parametrize("n", [1, 2, 263, 264, 1001, 2999, 4097])
+def test_block_plan_covers_every_element_once(n, ncol):
+    """K1's block plan and the kernel's walk cover every (row, column)
+    of Y exactly once, in packs that stay in one row, with the plan's
+    blocks and with fewer (grid-stride trips over the tiles); every tile
+    fits its staged data at 64 f64 diagonals in 48 KB."""
+    plan = dmod.launch_config(n, ncol, SMS)
+    assert isinstance(plan, dmod.BlockPlan) and plan.threads in dmod.BLOCK_SIZES
+    assert 1 <= plan.tile_rows <= dmod.TILE_ROWS_MAX
+    assert dmod.MAX_DIAGS * plan.tile_rows * 8 <= 48 * 1024
+    assert plan.blocks == min(-(-n // plan.tile_rows), dmod.MAX_BLOCKS)
+    for width in {_pack_width(ncol, 8), _pack_width(ncol, 4), 1}:
+        for blocks in (plan.blocks, max(1, plan.blocks // 7)):
+            seen = np.zeros(n * ncol, dtype=np.int64)
+            for _, r0, rows, row, first in _block_walk(n, ncol, plan._replace(blocks=blocks), width):
+                assert ((row >= r0) & (row < r0 + rows)).all()
+                elems = first[:, None] + np.arange(width)
+                assert (elems // ncol == row[:, None]).all()  # one row a pack
+                seen[elems.ravel()] += 1
+            assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("n, ncol", BLOCK_SHAPES)
+def test_block_plan_fills_the_card(n, ncol):
+    """At config #5b's and LOBPCG's shapes the block plan gives each of
+    the 132 SMs at least two CTAs, each thread one 16-byte f64 pack of
+    its tile."""
+    plan = dmod.launch_config(n, ncol, SMS)
+    assert plan.blocks >= 2 * SMS
+    assert plan.tile_rows * ncol <= 2 * plan.threads
+
+
+def _emulate_block_kernel(data, offsets, X, n_cols, plan):
+    """The block kernel in torch along its walk: each tile's data staged
+    once (the copies side by side), each pack's row read from its tile's
+    copy and its X from flat element e + off * ncol (zero outside
+    [0, n_cols * ncol)), the terms added in offset order from +0, all
+    packs of all tiles at once."""
+    n_rows, ncol = data.shape[1], X.shape[1]
+    width = _pack_width(ncol, X.element_size())
+    copies, at, firsts, base = [], [], [], 0
+    for _, r0, rows, row, first in _block_walk(n_rows, ncol, plan, width):
+        copies.append(data[:, r0 : r0 + rows])  # the cp.async copy
+        at.append(base + row - r0)
+        firsts.append(first)
+        base += rows
+    staged = torch.cat(copies, dim=1)
+    at, e = torch.from_numpy(np.concatenate(at)), torch.from_numpy(np.concatenate(firsts))
+    lanes = torch.arange(width)
+    x = X.reshape(-1)
+    acc = torch.zeros((len(e), width), dtype=X.dtype)
+    for k, off in enumerate(offsets):
+        src = e + off * ncol
+        inside = (src >= 0) & (src < n_cols * ncol)
+        xs = x[torch.where(inside, src, 0)[:, None] + lanes]
+        xs = torch.where(inside[:, None], xs, torch.zeros((), dtype=X.dtype))
+        acc = acc + staged[k, at][:, None] * xs
+    y = torch.full((n_rows * ncol,), float("nan"), dtype=X.dtype)
+    y[e[:, None] + lanes] = acc
+    return y.reshape(n_rows, ncol)
+
+
+#: (n_rows, n_cols, offsets) for the block emulation: odd n with
+#: config #5b's offsets and with offsets beyond n, rectangular, d = 64.
+BLOCK_EMULATION_CASES = {
+    "n1001_config5b_offsets": (1001, 1001, (-1000, -1, 0, 1, 1000)),
+    "n1001_offsets_beyond_n": (1001, 1001, (-1500, -3, 0, 2, 1200)),
+    "rect_40x55": (40, 55, (-7, -1, 0, 2, 9)),
+    "rect_55x40": (55, 40, (-7, -1, 0, 2, 9)),
+    "d64": (2000, 2000, tuple(range(-480, 480, 15))),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("ncol", [2, 3, 10, 20, 33])
+@pytest.mark.parametrize("case", list(BLOCK_EMULATION_CASES))
+def test_block_kernel_addressing_bitwise_equals_k1_plain(case, ncol, dtype):
+    """The block kernel's flat addressing and tile walk, emulated, give
+    K1's plain product bitwise, with the plan's blocks and with fewer
+    (grid-stride trips), random data in every position."""
+    n_rows, n_cols, offsets = BLOCK_EMULATION_CASES[case]
+    rng = np.random.default_rng(n_rows * ncol + len(offsets))
+    data = torch.from_numpy(rng.standard_normal((len(offsets), n_rows))).to(dtype)
+    X = torch.from_numpy(rng.standard_normal((n_cols, ncol))).to(dtype)
+    want = dmod.dia_spmv_plain(data, offsets, X, n_cols)
+    plan = dmod.launch_config(n_rows, ncol, SMS)
+    for blocks in (plan.blocks, max(1, plan.blocks // 7)):
+        got = _emulate_block_kernel(data, offsets, X, n_cols, plan._replace(blocks=blocks))
+        assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("shape", [(777, 777), (40, 55), (55, 40)])
