@@ -95,6 +95,16 @@ Phases, each printing JSON lines and its wall time:
     partial SVD's vectors and 5 columns at n = 10^4, bitwise against its
     plain version, timed beside its bound, plain version and the
     ``torch.sparse`` CSR product;
+11m. ``frontends``: ``stt.eigsh`` (config #3's shift-invert with the
+    multigrid inner solve, and the 10 largest of the same matrix),
+    ``stt.eigs`` (config #4's operator at g=100), ``stt.svds`` (dense
+    2000 x 1000) and the generalized ``stt.eigsh`` on config #5a's pair
+    at g=64, each with its counts and K1 launches;
+11n. ``mixed_precision``: ``scripts/tpu_mixed_1m.py``'s configuration
+    (banded d=5, 10 largest, ``set_precision("mixed")`` at tol 1e-6
+    against double at 1e-10) at n = 10^6 and 250,000, K1's f32 launches
+    asserted equal to the f32 twin's operations and its f64 block
+    launches to two a refinement round;
 12. the north star as ``scripts/tpu_northstar_100m.py:158-174`` runs
     it: shift-invert with the multigrid inner solve, the stepped driver
     and ``compute_locked`` for the 20 smallest eigenvalues, counted with
@@ -106,7 +116,8 @@ Phases, each printing JSON lines and its wall time:
 14. the last line, ``{"ok": true, "device": {...}}``.
 
 Each path (the probes, config #2, config #3, config #5a, config #4,
-config #5b, the north star) sets the
+config #5b, each frontend call, each mixed-precision solve, the north
+star) sets the
 launch counters to 0 just before it and reads them just after. Any
 failed check raises, so the script exits non-zero and prints no ``ok``
 line. Without a CUDA device it exits with code 2 before any phase. Only
@@ -122,6 +133,7 @@ and the launch floor.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -746,20 +758,7 @@ def check_ds_kernel(torch, dsmod, pf, pmg, A243):
     import scipy.sparse as sps
 
     rng = np.random.default_rng(1)
-    # Host steps of the hierarchy build, timed alone: scipy's todia (with
-    # the row alignment and the copy to the card) and scipy's Galerkin
-    # product P^T (A P) for level 1.
-    t0 = time.perf_counter()
-    dia243 = pf.dia_from_scipy(A243)
-    torch.cuda.synchronize()
-    todia_s = time.perf_counter() - t0
-    P = pmg.prolong_matrix((G_NORTH,) * 3, "clip")
-    t0 = time.perf_counter()
-    A1 = (P.T.tocsr() @ (A243 @ P)).tocsr()
-    galerkin_s = time.perf_counter() - t0
-    del P
-    emit(phase="north_star_host_steps", dia_from_scipy_s=todia_s,
-         galerkin_level1_s=galerkin_s, level1_nnz=int(A1.nnz))
+    dia243, A1 = north_star_host_steps(torch, pf, pmg, A243)
     n = 777
     offsets17 = tuple(
         sorted(int(o) for o in rng.choice(np.arange(-5000, 5001), 17, replace=False))
@@ -2200,6 +2199,271 @@ def phase_k1_blocks(torch, dmod, pf, rates, floor):
     return out
 
 
+def run_frontends(torch, stt, dmod, pmg, pf):
+    """Phase 11m: the scipy-style frontends (``stt.eigsh``, ``stt.eigs``,
+    ``stt.svds``) at full width. The frontends return arrays only, so the
+    phase records the solvers whose ``compute`` a call runs and prints
+    their counts. Each call: its wall, nconv, restarts, operations and
+    K1 launches (the counters set to 0 just before it). Checks: config
+    #3's shift-invert (``method="mg"``) and the 10 largest of the same
+    matrix (``ncv=100``: the plain IRLM's default 21 would need tens of
+    thousands of restarts on its 3e-5-wide top cluster) within 1e-9 of
+    the analytic values, K1 launches equal to what the path implies;
+    config #4's operator at g=100 with backward error <= 1e-9 and one K1
+    launch an operation; a dense 2000 x 1000 partial SVD within 1e-9
+    (relative) of numpy's; config #5a's pair at g=64 within a relative
+    1e-9. Returns K1's launches by call."""
+    from spectra_tpu_torch.solvers.base import HermEigsBase
+    from spectra_tpu_torch.solvers.gen_base import GenEigsBase
+
+    launches = {}
+
+    def call(label, fn):
+        seen = []
+        saved = {cls: cls.__dict__["compute"] for cls in (HermEigsBase, GenEigsBase)}
+
+        def recording(orig):
+            def compute(self, *args, **kwargs):
+                seen.append(self)
+                return orig(self, *args, **kwargs)
+            return compute
+
+        torch.cuda.synchronize()
+        dmod.LAUNCHES = 0
+        dmod.ENTRY_LAUNCHES.clear()
+        pmg.CYCLES = pmg.SOLVES = 0
+        for cls, orig in saved.items():
+            cls.compute = recording(orig)
+        try:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            for cls, orig in saved.items():
+                cls.compute = orig
+        launches[label] = dmod.LAUNCHES
+        return out, seen[0], wall, dmod.LAUNCHES, pmg.CYCLES, pmg.SOLVES
+
+    def report(label, s, wall, k1, nconv, ok, **extra):
+        emit(phase="frontends", call=label, wall_s=wall, nconv=nconv,
+             info=s.info().name, restarts=s.num_iterations(),
+             operations=s.num_operations(), k1_launches=k1, **extra)
+        if not ok:
+            raise RuntimeError(f"frontends: {label} missed its check ({extra})")
+
+    A = laplacian_2d(G_FULL)
+    lam = analytic_2d(G_FULL)
+    (w, v), s, wall, k1, cycles, solves = call(
+        "eigsh_sigma0_mg_g1000",
+        lambda: stt.eigsh(A, k=10, sigma=0.0, method="mg"))
+    err = float(np.abs(w - lam[:10]).max())
+    expected = expected_launches(s._op.mg, pf.DiaMatrix, cycles, solves)
+    report("eigsh_sigma0_mg_g1000", s, wall, k1, len(w),
+           len(w) == 10 and err <= 1e-9 and k1 == expected,
+           max_err_vs_analytic=err, expected_k1_launches=expected,
+           inner_solves=solves, v_cycles=cycles)
+    (w, v), s, wall, k1, _, _ = call(
+        "eigsh_LA_g1000", lambda: stt.eigsh(A, k=10, which="LA", ncv=100))
+    err = float(np.abs(w - lam[-10:]).max())
+    report("eigsh_LA_g1000", s, wall, k1, len(w),
+           len(w) == 10 and err <= 1e-9 and k1 == s.num_operations(),
+           ncv=100, max_err_vs_analytic=err)
+    del A, v
+
+    C = config4_matrix(100)
+    (w, v), s, wall, k1, _, _ = call("eigs_config4_g100", lambda: stt.eigs(C, k=6))
+    resid = float(np.abs(C @ v - v * w[None, :]).max())
+    report("eigs_config4_g100", s, wall, k1, len(w),
+           len(w) == 6 and resid <= 1e-9 and k1 == s.num_operations(),
+           residual_inf=resid, eigenvalues=[str(x) for x in w])
+
+    M = np.random.default_rng(2000).normal(size=(2000, 1000))
+    ref = np.sort(np.linalg.svd(M, compute_uv=False)[:5])
+    (u, sv, vh), s, wall, k1, _, _ = call("svds_dense_2000x1000", lambda: stt.svds(M, k=5))
+    err = float(np.abs(sv - ref).max() / ref.max())
+    resid = float(np.abs(M @ vh.T - u * sv[None, :]).max())
+    report("svds_dense_2000x1000", s, wall, k1, len(sv),
+           len(sv) == 5 and err <= 1e-9 and resid <= 1e-7,
+           rel_err_vs_numpy=err, residual_inf=resid)
+
+    Ka, Mb = config5a_pair(64)
+    want = config5a_analytic(64)
+    (w, v), s, wall, k1, _, _ = call(
+        "eigsh_generalized_sigma0_g64", lambda: stt.eigsh(Ka, k=10, M=Mb, sigma=0.0))
+    rel = float(np.abs((w - want) / want).max())
+    resid = float(np.abs(Ka @ v - (Mb @ v) * w[None, :]).max())
+    report("eigsh_generalized_sigma0_g64", s, wall, k1, len(w),
+           len(w) == 10 and rel <= 1e-9 and resid <= 1e-9 and k1 > 0,
+           max_rel_err_vs_analytic=rel, residual_inf=resid)
+    return launches
+
+
+def mixed_matrix(n, k=10):
+    """``scripts/tpu_mixed_1m.py``'s matrix: ``d = linspace(1, 100, n)``
+    with the top k set to ``100 * 1.05^i``, off-diagonals 0.25 / 0.5 at
+    offsets +-1000 and +-1 (DIA, d=5)."""
+    import scipy.sparse as sps
+
+    d = np.linspace(1.0, 100.0, n)
+    d[-k:] = 100.0 * 1.05 ** np.arange(1, k + 1)
+    return sps.diags(
+        [np.full(n, 0.25), np.full(n, 0.5), d, np.full(n, 0.5), np.full(n, 0.25)],
+        [-1000, -1, 0, 1, 1000], shape=(n, n), format="csr",
+    )
+
+
+def run_mixed_precision(torch, stt, dmod, pf):
+    """Phase 11n: ``scripts/tpu_mixed_1m.py``'s configuration through the
+    port: ``SymEigsSolver(nev=10, ncv=30)``, LargestAlge, maxit 500, v0
+    ``SimpleRandom(0)``, mixed at tol 1e-6 and double at tol 1e-10, each
+    a warm-up and a timed solve, at n = 10^6 (the script's at-scale
+    size) and 250,000 (the size the JAX package recorded; no warm-ups).
+    The counters are set to 0 just before each timed solve: K1's f32
+    launches must equal the twin's operations, its f64 block launches
+    two a refinement round, the double run's f64 launches its
+    operations. K1 f32 is held bitwise against its plain version on the
+    twin's planes. Raises unless nconv_mixed is 10, the values are within
+    1e-9 max|lambda| of the double run's, and every residual re-measured
+    on the f64 operator is within 1e-6 max|lambda|. Returns the K1
+    launches of the timed runs by n."""
+    from spectra_tpu_torch.solvers.mixed import cast_op_f32
+    from spectra_tpu_torch.util.rng import SimpleRandom
+
+    k = 10
+    out = {}
+    for n, warm in ((1_000_000, True), (250_000, False)):
+        A = mixed_matrix(n, k)
+        v0 = SimpleRandom(0).random_vec(n)
+
+        def run(precision, tol):
+            op = stt.SparseSymMatProd.from_full(A)
+            s = stt.SymEigsSolver(op, nev=k, ncv=30)
+            s.set_precision(precision)
+            if warm:
+                s.init(v0)
+                s.compute(stt.SortRule.LargestAlge, maxit=500, tol=tol)
+            s.init(v0)
+            torch.cuda.synchronize()
+            dmod.LAUNCHES = 0
+            dmod.ENTRY_LAUNCHES.clear()
+            t0 = time.perf_counter()
+            nconv = s.compute(stt.SortRule.LargestAlge, maxit=500, tol=tol)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            return nconv, wall, s, op, dict(dmod.ENTRY_LAUNCHES)
+
+        nc_m, wall_m, s_m, op, l_m = run("mixed", 1e-6)
+        nc_d, wall_d, s_d, _, l_d = run("double", 1e-10)
+        vals_m = np.sort(s_m.eigenvalues())[::-1]
+        vals_d = np.sort(s_d.eigenvalues())[::-1]
+        kk = min(nc_m, nc_d)
+        err = float(np.abs(vals_m[:kk] - vals_d[:kk]).max()) if kk else None
+        scale = float(np.abs(vals_d).max())
+        rep = s_m.mixed_report()
+        V = s_m.eigenvectors()
+        th = torch.from_numpy(s_m.eigenvalues()).to(V.device)
+        remeasured = float(torch.linalg.vector_norm(
+            op.perform_op(V.contiguous()) - V * th[None, :], dim=0).max())
+        twin_ops = s_m.num_operations() - 3 * nc_m
+        rounds = rep["refine_rounds"]
+        twin = cast_op_f32(op).ell
+        x = torch.randn(n, dtype=torch.float32, device="cuda")
+        y = dmod.dia_spmv(twin.data, twin.offsets, x, twin.n_cols)
+        f32_err = float((y - dmod.dia_spmv_plain(twin.data, twin.offsets, x, twin.n_cols))
+                        .abs().max())
+        emit(phase="mixed_precision", n=n, nnz=int(A.nnz), warm_up=warm,
+             nconv_mixed=nc_m, nconv_double=nc_d, wall_mixed_s=wall_m,
+             wall_double_s=wall_d, speedup_vs_double=wall_d / wall_m,
+             eval_err_vs_double=err, max_resid_f64=float(np.max(rep["resid_f64"])),
+             remeasured_max_resid=remeasured, max_abs_eigenvalue=scale,
+             twin_restarts=s_m.num_iterations(), twin_operations=twin_ops,
+             refine_rounds=rounds, k1_launches_mixed=l_m, k1_launches_double=l_d,
+             double_restarts=s_d.num_iterations(), double_operations=s_d.num_operations(),
+             k1_f32_vs_plain_max_abs_err=f32_err, info=s_m.info().name)
+        if nc_m != k or nc_d != k:
+            raise RuntimeError(f"mixed precision at n={n}: nconv {nc_m} / {nc_d}")
+        if err > 1e-9 * scale or remeasured > 1e-6 * scale:
+            raise RuntimeError(f"mixed precision at n={n}: error {err}, residual {remeasured}")
+        if l_m != {"f32": twin_ops, "f64_block": 2 * rounds} or rounds < 1:
+            raise RuntimeError(f"mixed precision at n={n}: K1 launches {l_m}, twin "
+                               f"operations {twin_ops}, {rounds} rounds")
+        if l_d != {"f64": s_d.num_operations()}:
+            raise RuntimeError(f"double at n={n}: K1 launches {l_d}")
+        if f32_err != 0.0:
+            raise RuntimeError(f"K1 f32 differs from its plain version on the twin: {f32_err}")
+        out[n] = {"mixed": l_m, "double": l_d}
+        del s_m, s_d, op, twin, V
+        torch.cuda.empty_cache()
+    return out
+
+
+def scipy_dia_rows(A):
+    """Row-aligned DIA ``(offsets, rows)`` of ``A`` by scipy's ``todia``
+    and the row alignment, the route the port took before its native
+    converter."""
+    dia = A.todia()
+    offsets = tuple(int(o) for o in dia.offsets)
+    n_rows, n_cols = A.shape
+    rows = np.zeros((len(offsets), n_rows), dtype=dia.data.dtype)
+    width = dia.data.shape[1]
+    for k, off in enumerate(offsets):
+        lo = max(0, -off)
+        hi = min(n_rows, n_cols - off, width - off)
+        if hi > lo:
+            rows[k, lo:hi] = dia.data[k, lo + off: hi + off]
+    order = np.argsort(offsets)
+    return tuple(offsets[i] for i in order), rows[order]
+
+
+def north_star_host_steps(torch, pf, pmg, A243):
+    """The hierarchy build's host steps at the north star's size, each
+    by the native toolkit and by scipy in the same call: the CSR-to-DIA
+    conversion of the g=243 operator (native ``csr_to_dia`` against
+    scipy's ``todia`` with the row alignment) and the Galerkin product
+    of MG level 1 (native ``galerkin_rap`` against scipy's
+    ``P.T @ (A @ P)``), with the largest difference of the entries
+    relative to the largest entry. Then ``dia_from_scipy`` of the
+    operator as the path runs it (native, and the copy to the card).
+    Returns that DIA matrix and the native level-1 CSR."""
+    from spectra_tpu_torch import native
+
+    t0 = time.perf_counter()
+    offs_n, rows_n = native.csr_to_dia(A243.shape[0], A243.shape[1], A243.indptr,
+                                       A243.indices, A243.data)
+    native_dia_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    offs_s, rows_s = scipy_dia_rows(A243)
+    scipy_dia_s = time.perf_counter() - t0
+    if offs_n != offs_s:
+        raise RuntimeError(f"csr_to_dia offsets {offs_n} against scipy's {offs_s}")
+    dia_diff = float(np.abs(rows_n - rows_s).max() / np.abs(rows_s).max())
+    del rows_n, rows_s
+    P = pmg.prolong_matrix((G_NORTH,) * 3, "clip")
+    t0 = time.perf_counter()
+    A1 = native.galerkin_rap(A243, P).tocsr()
+    native_rap_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    A1s = (P.T.tocsr() @ (A243 @ P)).tocsr()
+    scipy_rap_s = time.perf_counter() - t0
+    del P
+    rap_diff = float(abs(A1 - A1s).max() / abs(A1s).max())
+    same_pattern = A1.nnz == A1s.nnz
+    del A1s
+    t0 = time.perf_counter()
+    dia243 = pf.dia_from_scipy(A243)
+    torch.cuda.synchronize()
+    todia_s = time.perf_counter() - t0
+    emit(phase="north_star_host_steps", dia_from_scipy_s=todia_s,
+         csr_to_dia_native_s=native_dia_s, todia_scipy_s=scipy_dia_s,
+         dia_max_rel_diff=dia_diff, galerkin_level1_native_s=native_rap_s,
+         galerkin_level1_scipy_s=scipy_rap_s, galerkin_max_rel_diff=rap_diff,
+         level1_nnz=int(A1.nnz), level1_same_nnz_as_scipy=same_pattern,
+         host_threads=os.cpu_count())
+    if dia_diff != 0.0 or rap_diff > 1e-12:
+        raise RuntimeError(f"native host steps disagree with scipy: DIA {dia_diff}, "
+                           f"Galerkin {rap_diff}")
+    return dia243, A1
 def run_north_star(torch, stt, dmod, dsmod, pmg, pf, A, dia64, matrix_s):
     """The north star at full width as ``scripts/tpu_northstar_100m.py:
     158-174`` runs it: the 20 smallest eigenvalues, counted with
@@ -2281,6 +2545,9 @@ def run_north_star(torch, stt, dmod, dsmod, pmg, pf, A, dia64, matrix_s):
          max_rel_residual=float(rel_res.max()),
          prefix_captured=captured, eigenvalues=vals.tolist(),
          V_device=str(res.V.device))
+    emit(phase="north_star_set_shift", toolkit="native", set_shift_total_s=set_shift_s,
+         hierarchy_s=op.build_s.get("hierarchy"), dia_s=op.build_s.get("dia"),
+         build_parts_s=op.build_s)
     if nconv != 20 or e.info() != stt.CompInfo.Successful:
         raise RuntimeError("the north star did not converge 20/20")
     if not e.certified() or captured != 20:
@@ -2622,6 +2889,8 @@ def main(argv):
     del op5b
     phase("contrib", run_contrib, torch, stt, dmod)
     k1_blocks = phase("k1_block_timing", phase_k1_blocks, torch, dmod, pf, rates, k1_floor)
+    k1_frontends = phase("frontends", run_frontends, torch, stt, dmod, pmg, pf)
+    k1_mixed = phase("mixed_precision", run_mixed_precision, torch, stt, dmod, pf)
     ns_op, k1_ns, k2_ns, ns_cycles, ns_solves = phase(
         "north_star", run_north_star, torch, stt, dmod, dsmod, pmg, pf, A243,
         dia243, matrix_s,
@@ -2655,6 +2924,8 @@ def main(argv):
             launches_config5b=k1_config5b[1_000_000],
             launches_config5b_by_n={str(k): v for k, v in k1_config5b.items()},
             block_timings=k1_blocks,
+            launches_frontends=k1_frontends,
+            launches_mixed_by_n={str(k): v for k, v in k1_mixed.items()},
             launches_north_star=k1_ns,
             north_star_levels=[t for t in level_t if t["kernel"] == "dia_spmv"],
             k1_levels=k1_levels, launch_floor=k1_floor,

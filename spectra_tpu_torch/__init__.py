@@ -25,6 +25,14 @@ GPU, and raise when there is none; pass ``device="cpu"`` to run the
 plain PyTorch path on the CPU. Tensors default to float64 through the
 operator's dtype; torch's global default dtype is never changed.
 
+The scipy-style frontends ``eigsh``, ``eigs`` and ``svds`` (with
+``NoConvergence``) and the submodules ``io`` and ``profiling`` are
+exported lazily, as in the JAX package. ``set_precision("mixed")`` on
+the plain symmetric drivers runs the restarted Lanczos in f32 and
+refines in f64. Host sparse conversions and the multigrid hierarchy's
+products run in the port's native library (``csrc/sparse_kernels.cpp``,
+built by ``g++`` on first use).
+
 This package imports torch, numpy and scipy, never jax or
 ``spectra_tpu``.
 """
@@ -75,6 +83,12 @@ from spectra_tpu_torch.sparse.formats import DiaHiLoMatrix, maybe_hilo
 from spectra_tpu_torch.util.compinfo import CompInfo
 from spectra_tpu_torch.util.geigsmode import GEigsMode
 from spectra_tpu_torch.util.selection import SortRule
+from spectra_tpu_torch.util.version import (
+    SPECTRA_TPU_MAJOR_VERSION,
+    SPECTRA_TPU_MINOR_VERSION,
+    SPECTRA_TPU_PATCH_VERSION,
+    __version__,
+)
 
 __all__ = [
     "ChebSymEigsSolver",
@@ -115,4 +129,31 @@ __all__ = [
     "SymGEigsSolver",
     "SymShiftInvert",
     "maybe_hilo",
+    "__version__",
+    "SPECTRA_TPU_MAJOR_VERSION",
+    "SPECTRA_TPU_MINOR_VERSION",
+    "SPECTRA_TPU_PATCH_VERSION",
 ]
+
+_LAZY = {
+    # scipy.sparse.linalg-compatible frontend
+    "eigsh": "spectra_tpu_torch.api",
+    "eigs": "spectra_tpu_torch.api",
+    "svds": "spectra_tpu_torch.api",
+    "NoConvergence": "spectra_tpu_torch.api",
+}
+_LAZY_MODULES = {
+    "io": "spectra_tpu_torch.io",
+    "profiling": "spectra_tpu_torch.util.profiling",
+}
+
+
+def __getattr__(name):
+    # Lazy exports keep ``import spectra_tpu_torch`` light.
+    import importlib
+
+    if name in _LAZY:
+        return getattr(importlib.import_module(_LAZY[name]), name)
+    if name in _LAZY_MODULES:
+        return importlib.import_module(_LAZY_MODULES[name])
+    raise AttributeError(f"module 'spectra_tpu_torch' has no attribute {name!r}")

@@ -7,10 +7,12 @@ O(sqrt(kappa)) iterations.
 
 * The hierarchy is built once on the host from the scipy CSR of the
   shifted matrix: Galerkin coarse operators ``A_c = P^T (A P)`` with the
-  tensor-product linear prolongation, by scipy's sparse product, and the
-  smoother's ``lambda_max(D^-1 A)`` by a power iteration over scipy's
-  CSR matvec (the JAX package calls its native threaded kernels there;
-  scipy takes seconds at the 100M-nnz scale, see CHANGES.md). Each level
+  tensor-product linear prolongation, by the threaded Gustavson product
+  of the port's native sparse toolkit (:func:`~spectra_tpu_torch.native.
+  galerkin_rap`), and the smoother's ``lambda_max(D^-1 A)`` by a power
+  iteration over its threaded CSR matvec, as in the JAX package. Each
+  coarse entry is summed by one thread in a fixed order, so the
+  hierarchy is bitwise the JAX package's on the same host. Each level
   goes to the device through :func:`dia_device_from_scipy`, so the large
   f64 levels on the card become hi/lo planes as in the JAX package.
 * Grid transfers on the device are strided-slice tensor operations
@@ -292,14 +294,17 @@ class MGState:
 
 def _lam_max_jacobi(csr, diag, iters: int = 12, seed: int = 7) -> float:
     """Overestimate of ``lambda_max(D^{-1} A)``: power iteration over
-    scipy's CSR matvec, plus 15 %."""
+    the native threaded CSR matvec, plus 15 %."""
+    from spectra_tpu_torch.native import csr_matvec_builder
+
+    mv = csr_matvec_builder(csr)
     rng = np.random.default_rng(seed)
     v = rng.normal(size=csr.shape[0])
     v /= np.linalg.norm(v)
     lam = 1.0
     inv_diag = 1.0 / diag
     for _ in range(iters):
-        w = (csr @ v) * inv_diag
+        w = mv(v) * inv_diag
         lam = float(np.linalg.norm(w))
         if lam == 0 or not np.isfinite(lam):
             raise MGBuildError("D^{-1} A power iteration degenerated")
@@ -363,7 +368,9 @@ def build_level_chain(A, dims, boundary: str, max_coarse_n: int = 1024,
         )
         dims_per_level.append(level_dims)
         P = prolong_matrix(level_dims, boundary)
-        level_csr = (P.T.tocsr() @ (level_csr @ P)).tocsr()
+        from spectra_tpu_torch.native import galerkin_rap
+
+        level_csr = galerkin_rap(level_csr, P).tocsr()
         level_csr.sum_duplicates()
         # Drop numerically-zero fill so the coarse DIA stays tight.
         level_csr.data[np.abs(level_csr.data) < 1e-300] = 0.0

@@ -115,6 +115,15 @@ def apply_yq(Y, c, s):
     return Y
 
 
+def accumulate_q(c, s, m=None, dtype=None):
+    """Materialize ``Q = G_0 ... G_{m-2}`` as a dense (m, m) matrix."""
+    if m is None:
+        m = c.shape[0] + 1
+    if dtype is None:
+        dtype = c.dtype
+    return apply_yq(torch.eye(m, dtype=dtype), c, s)
+
+
 def tridiag_to_dense(diag, subdiag):
     return (
         torch.diag(diag)

@@ -3,8 +3,8 @@
 Each ``spectra_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` into
 its own shared library with a plain C interface and loaded with
 ``ctypes`` (no PyTorch headers, so a build takes seconds). Each
-``csrc/<name>.cpp`` (host code: the native dense driver) is compiled
-the same way by ``g++``. Libraries go to ``build/spectra_tpu_torch/``
+``csrc/<name>.cpp`` (host code: the native dense driver and the sparse
+toolkit) is compiled the same way by ``g++``. Libraries go to ``build/spectra_tpu_torch/``
 at the root of the checkout, named by a hash of the source, the shared
 device headers (``csrc/*.cuh``, for ``.cu`` sources) and the flags, so
 an edited source or header is rebuilt and an unchanged one is reused.
@@ -128,7 +128,7 @@ def _finish(name: str, started) -> None:
 
 def sources() -> list:
     """Names of every source under ``csrc/``: the kernels (``.cu``) and
-    the host library (``.cpp``)."""
+    the host libraries (``.cpp``)."""
     return sorted(p.stem for p in (*CSRC.glob("*.cu"), *CSRC.glob("*.cpp")))
 
 
@@ -141,7 +141,8 @@ def build_all() -> None:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of ``csrc/<name>.cu`` or ``.cpp``, built on
+    first use."""
     lib = _LIBS.get(name)
     if lib is None:
         _finish(name, _start(name))

@@ -41,12 +41,6 @@ from spectra_tpu_torch.util.rng import SimpleRandom
 from spectra_tpu_torch.util.selection import SortRule, argsort_np, sort_key_np
 
 
-def _waits(feature: str, item: int):
-    return NotImplementedError(
-        f"{feature} waits for its slice of the port: ROADMAP.md item {item}"
-    )
-
-
 class HermEigsBase:
     """Base for the symmetric and Hermitian IRLM solver drivers.
 
@@ -91,6 +85,8 @@ class HermEigsBase:
         self._locking_certified = False
         self._locking_rounds = []
         self._locking_round = False
+        self._precision = "double"
+        self._mixed = None
 
     # -- options ---------------------------------------------------------
     def set_restart_method(self, method: str):
@@ -118,11 +114,35 @@ class HermEigsBase:
         self._reorth = method
 
     def set_precision(self, mode: str):
-        """Only ``"double"`` (everything in the operator dtype)."""
-        if mode == "mixed":
-            raise _waits("set_precision('mixed')", 16)
-        if mode != "double":
+        """``"double"`` (default): everything in the operator dtype.
+        ``"mixed"``: run the whole restarted Lanczos on an f32 twin of the
+        operator and refine the converged subspace with f64 Rayleigh-Ritz
+        rounds against the original operator
+        (:mod:`spectra_tpu_torch.solvers.mixed`). It accepts
+        ``tol >= 1e-6`` (the f32 residual floor), delivers 1e-9-grade
+        eigenvalues on gapped spectra, and reports the re-measured f64
+        residuals through :meth:`mixed_report`. Plain symmetric MatProd
+        drivers only (no shift or generalized modes)."""
+        if mode not in ("double", "mixed"):
             raise ValueError("precision must be 'double' or 'mixed'")
+        if mode == "mixed" and (
+            self._has_bop or type(self)._ritz_transform is not None
+        ):
+            raise ValueError(
+                "mixed precision applies to the plain symmetric solver "
+                "(shift/generalized modes couple inner tolerances in f64)"
+            )
+        self._precision = mode
+
+    def mixed_report(self) -> dict:
+        """After a mixed-precision compute: the values and the
+        re-measured f64 residual norms of the returned eigenpairs, and the
+        refinement rounds run (two f64 block products each)."""
+        vals, _, resid = getattr(self, "_mixed", None) or (
+            np.zeros(0), None, np.zeros(0)
+        )
+        rounds = getattr(self, "_mixed_rounds", 0) if len(vals) else 0
+        return {"values": vals, "resid_f64": resid, "refine_rounds": rounds}
 
     def _eff_mode(self) -> str:
         """The factorization mode: selective re-orthogonalization only
@@ -228,6 +248,7 @@ class HermEigsBase:
         self._niter = 0
         self._nops = 0
         self._result = None
+        self._mixed = None
 
     # -- computation -----------------------------------------------------
     def compute(
@@ -240,6 +261,11 @@ class HermEigsBase:
         """Run the solver; returns the number of converged eigenvalues."""
         if self._v0 is None:
             self.init()
+        self._mixed = None
+        if self._precision == "mixed":
+            from spectra_tpu_torch.solvers.mixed import compute_mixed
+
+            return compute_mixed(self, selection, maxit, tol, sorting)
         from spectra_tpu_torch.matop.shift_solve import couple_inner_tolerance
 
         self._arnop = couple_inner_tolerance(self._arnop, tol)
@@ -490,6 +516,8 @@ class HermEigsBase:
 
     def eigenvalues(self) -> np.ndarray:
         """Converged eigenvalues (real), in the requested sorting order."""
+        if self._mixed is not None:
+            return self._mixed[0]
         out = numpy_dtype(dtypes.real_dtype(self._dtype))
         if self._result is None:
             return np.zeros((0,), out)
@@ -499,6 +527,9 @@ class HermEigsBase:
     def eigenvectors(self, nvec: int | None = None) -> torch.Tensor:
         """Eigenvectors of the converged eigenvalues (columns), on the
         operator's device."""
+        if self._mixed is not None:
+            V = self._mixed[1]
+            return V if nvec is None else V[:, : min(nvec, V.shape[1])]
         if self._result is None:
             return torch.zeros(
                 (self._n, 0), dtype=self._dtype, device=self._device

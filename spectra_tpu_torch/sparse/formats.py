@@ -397,14 +397,21 @@ def maybe_hilo(dia, threshold: int | None = None):
 
 def _dia_host_arrays(sp_mat, dtype=None):
     """Row-aligned host DIA arrays ``(offsets, rows, n_rows, n_cols)``
-    from scipy sparse, through scipy's ``todia``. (The JAX package
-    first tries its threaded native converter; that waits for its own
-    slice.)"""
+    from scipy sparse. An f64 matrix kept in f64 goes through the native
+    converter (:func:`spectra_tpu_torch.native.csr_to_dia`), as in the
+    JAX package; any other dtype through scipy's ``todia``."""
     csr = sp_mat.tocsr()
     n_rows, n_cols = csr.shape
+    dtype = numpy_dtype(dtype)
+    if csr.dtype == np.float64 and dtype in (None, np.float64):
+        from spectra_tpu_torch import native
+
+        offsets, rows = native.csr_to_dia(
+            n_rows, n_cols, csr.indptr, csr.indices, csr.data
+        )
+        return offsets, rows, n_rows, n_cols
     dia = csr.todia()
     offsets = tuple(int(o) for o in dia.offsets)
-    dtype = numpy_dtype(dtype)
     data = dia.data if dtype is None else dia.data.astype(dtype)
     # scipy aligns data[k] by column index; shift to row alignment:
     # row_data[k, i] = A[i, i+off] = scipy_data[k, i+off].

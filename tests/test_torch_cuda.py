@@ -606,3 +606,44 @@ def test_lobpcg_and_partial_svd_on_card(cuda):
     np.testing.assert_allclose(p.singular_values(), np.linalg.svd(M, compute_uv=False)[:4],
                                atol=1e-8)
     assert p.matrix_U(4).device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_mixed_precision_on_card(cuda):
+    """``set_precision("mixed")`` on a small DIA matrix on the card: the
+    twin's SpMVs are K1's f32 vector launches, one a twin operation; each
+    refinement round is two f64 block launches; the values match the
+    double run's and the CPU mixed run's."""
+    import spectra_tpu_torch as stt
+
+    n, k = 20000, 4
+    d = np.linspace(1.0, 100.0, n)
+    d[-k:] = 100.0 * 1.05 ** np.arange(1, k + 1)
+    A = sps.diags(
+        [0.25 * np.ones(n - 100), 0.5 * np.ones(n - 1), d, 0.5 * np.ones(n - 1),
+         0.25 * np.ones(n - 100)], [-100, -1, 0, 1, 100],
+    ).tocsr()
+
+    def run(device, precision, tol):
+        s = stt.SymEigsSolver(stt.SparseSymMatProd.from_full(A, device=device), k, 20)
+        s.set_precision(precision)
+        s.init()
+        dmod.LAUNCHES = 0
+        dmod.ENTRY_LAUNCHES.clear()
+        nconv = s.compute(stt.SortRule.LargestAlge, maxit=500, tol=tol)
+        torch.cuda.synchronize()
+        return s, nconv, dict(dmod.ENTRY_LAUNCHES)
+
+    s, nconv, launches = run("cuda", "mixed", 1e-6)
+    assert nconv == k and s.info() == stt.CompInfo.Successful
+    twin_ops = s.num_operations() - 3 * nconv
+    assert launches.get("f32") == twin_ops
+    assert launches.get("f64_block", 0) % 2 == 0 and launches["f64_block"] >= 2
+    assert set(launches) == {"f32", "f64_block"}
+    ref, _, _ = run("cuda", "double", 1e-10)
+    cpu, _, _ = run("cpu", "mixed", 1e-6)
+    scale = np.abs(ref.eigenvalues()).max()
+    np.testing.assert_allclose(s.eigenvalues(), ref.eigenvalues(), rtol=0, atol=1e-9 * scale)
+    np.testing.assert_allclose(s.eigenvalues(), cpu.eigenvalues(), rtol=0, atol=1e-9 * scale)
+    assert np.all(s.mixed_report()["resid_f64"] <= 1e-6 * scale)
+    assert s.eigenvectors().device.type == "cuda"

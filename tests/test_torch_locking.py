@@ -1,7 +1,9 @@
 """The port's ``compute_locked`` (locking / deflated continuation) against
 the JAX package: the cases of ``tests/test_locking.py`` with sparse
-operators (its dense cases take a diagonal matrix of the same spectrum;
-the B-metric case waits for ROADMAP.md item 13).
+operators (its dense cases take a diagonal matrix of the same spectrum),
+and its generalized case (eigenvalues 8, 8 and 4) with the reference's
+B = I and with a random SPD B, in the Cholesky mode and under the
+B-inner product of the regular-inverse mode.
 
 Both packages run the same matrices from the same start vectors. Each
 must be ``certified()``, return the wanted set with its full
@@ -88,6 +90,49 @@ def _check(p, j, want_vals, atol=1e-9):
     np.testing.assert_allclose(np.sort(pv), np.sort(want_vals), atol=atol, rtol=0)
     np.testing.assert_allclose(np.sort(pv), np.sort(jv), atol=1e-10, rtol=0)
     return pv
+
+
+def _b_metric_case(kind, n=120):
+    """The reference's ``test_generalized_b_metric_locking`` pencil: the
+    eigenvalues of ``(A, B)`` are 8, 8 and a spread in [0.5, 4]. ``B`` is
+    the identity (the reference's) or a random SPD matrix, with
+    ``A = L (Q d Q^T) L^T`` for ``B = L L^T``."""
+    rng = np.random.default_rng(3)
+    Q, _ = np.linalg.qr(rng.normal(size=(n, n)))
+    d = np.concatenate([[8.0, 8.0], np.linspace(0.5, 4.0, n - 2)])
+    A = (Q * d[None, :]) @ Q.T
+    if kind == "identity":
+        B = np.eye(n)
+    else:
+        R = np.random.default_rng(4).normal(size=(n, n))
+        B = R @ R.T / n + np.eye(n)
+        L = np.linalg.cholesky(B)
+        A = L @ A @ L.T
+    return 0.5 * (A + A.T), 0.5 * (B + B.T)
+
+
+@pytest.mark.parametrize("mode", ["Cholesky", "RegularInverse"])
+@pytest.mark.parametrize("kind", ["identity", "random_spd"])
+def test_generalized_b_metric_locking(kind, mode):
+    A, B = _b_metric_case(kind)
+    out = []
+    for mod, dev in ((stt, dict(device="cpu")), (st, {})):
+        if mode == "Cholesky":
+            bop = mod.DenseCholesky.create(B, **dev)
+        else:
+            bop = mod.SparseRegularInverse.create(sps.csr_matrix(B), **dev)
+        s = mod.SymGEigsSolver(mod.DenseSymMatProd.create(A, **dev), bop, nev=3, ncv=12,
+                               mode=getattr(mod.GEigsMode, mode))
+        s.init()
+        assert s.compute_locked(mod.SortRule.LargestAlge) == 3
+        assert s.certified()
+        out.append(s)
+    lam = np.sort(out[0].eigenvalues())[::-1]
+    np.testing.assert_allclose(lam, [8.0, 8.0, 4.0], atol=1e-8)
+    np.testing.assert_allclose(
+        lam, np.sort(np.asarray(out[1].eigenvalues()))[::-1], atol=1e-8)
+    U = out[0].eigenvectors().numpy()
+    assert np.abs(A @ U - (B @ U) * out[0].eigenvalues()[None, :]).max() < 1e-8
 
 
 def test_degenerate_smallest_full_multiplicity():

@@ -123,9 +123,13 @@ def test_public_surface():
         "RotatedEmbeddedGenMatProd", "DenseHermMatProd", "SparseHermMatProd",
         "DenseHermShiftSolve", "RealEmbeddedHermMatProd", "HermEigsSolver",
         "JDSymEigsBase", "DavidsonSymEigsSolver", "PartialSVDSolver",
-        "LOBPCGSolver",
+        "LOBPCGSolver", "__version__", "SPECTRA_TPU_MAJOR_VERSION",
+        "SPECTRA_TPU_MINOR_VERSION", "SPECTRA_TPU_PATCH_VERSION",
     }
     assert all(hasattr(stt, name) for name in stt.__all__)
+    # The lazy exports, as in the JAX package.
+    for name in ("eigsh", "eigs", "svds", "NoConvergence", "io", "profiling"):
+        assert hasattr(stt, name), name
     A = sps.random(20, 20, density=0.3, random_state=0, format="csr")
     op = stt.SparseGenMatProd.create(A, device="cpu")
     x = np.random.default_rng(0).normal(size=20)

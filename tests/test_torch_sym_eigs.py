@@ -214,8 +214,12 @@ def test_solver_api_checks():
         s.init(np.zeros(G * G))
     with pytest.raises(ValueError):
         s.init(np.ones(5))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        s.set_precision("mixed")
+    # Mixed precision is ported: the mode is accepted, and compute under
+    # it rejects a tolerance below the f32 floor, as the JAX package does.
+    s.set_precision("mixed")
+    with pytest.raises(ValueError, match="mixed precision accepts"):
+        s.compute(stt.SortRule.LargestAlge, tol=1e-10)
+    s.set_precision("double")
     # The B-metric (item 13) is ported: bop is the Krylov inner product.
     with_b = stt.SymEigsSolver(op, nev=3, ncv=10, bop=op)
     assert with_b._has_bop and with_b._arnop.bop is op

@@ -88,3 +88,50 @@ def test_resolve_device():
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             resolve_device(None)
+
+
+def test_version_constants_match_jax():
+    import spectra_tpu as st
+    import spectra_tpu_torch as stt
+    from spectra_tpu_torch.util import version
+
+    for name in ("__version__", "SPECTRA_TPU_MAJOR_VERSION",
+                 "SPECTRA_TPU_MINOR_VERSION", "SPECTRA_TPU_PATCH_VERSION"):
+        assert getattr(stt, name) == getattr(st, name) == getattr(version, name)
+    assert stt.__version__ == "{}.{}.{}".format(
+        stt.SPECTRA_TPU_MAJOR_VERSION, stt.SPECTRA_TPU_MINOR_VERSION,
+        stt.SPECTRA_TPU_PATCH_VERSION)
+
+
+def test_phase_timer_accumulates_as_jax():
+    from spectra_tpu.util.profiling import PhaseTimer as JTimer
+    from spectra_tpu_torch.util.profiling import PhaseTimer
+
+    for cls in (PhaseTimer, JTimer):
+        t = cls()
+        for _ in range(3):
+            with t("spmv"):
+                pass
+        with pytest.raises(KeyError):
+            with t("solve"):
+                raise KeyError("inside")
+        summary = t.summary()
+        assert {k: v["calls"] for k, v in summary.items()} == {"spmv": 3, "solve": 1}
+        assert all(v["total_s"] >= 0.0 for v in summary.values())
+        summary["spmv"]["calls"] = 99  # a copy
+        assert t.summary()["spmv"]["calls"] == 3
+        t.reset()
+        assert t.summary() == {}
+
+
+def test_trace_writes_a_chrome_trace(tmp_path):
+    import json
+
+    from spectra_tpu_torch.util.profiling import trace
+
+    with trace(str(tmp_path / "tr")):
+        x = torch.ones(64, 64, dtype=torch.float64)
+        (x @ x).sum().item()
+    path = tmp_path / "tr" / "trace.json"
+    events = json.loads(path.read_text())["traceEvents"]
+    assert any("mm" in str(e.get("name", "")) for e in events)
