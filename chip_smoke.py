@@ -112,12 +112,28 @@ Phases, each printing JSON lines and its wall time:
     nonzeros), each level of its built hierarchy timed beside its bound
     and its launches per run, and a profile of a few of its inner
     solves;
+12b. ``multidevice_g160``: the multi-device layer on one rank over NCCL
+    at full size, the 3-D g=160 Laplacian (n = 4,096,000, the JAX
+    package's at-scale sharded record): auto-routing to
+    ``ShardedStencilHiLoMatProd``, its SpMV against K1 f64, K2's ``_ext``
+    entry bitwise against its plain version and timed beside the
+    unsharded ``DiaHiLoMatrix.matvec``, the bound and the CSR call, then
+    the 20 smallest by ``sharded_stencil_shift_solve`` (the sharded
+    multigrid) and ``compute_locked`` with the north star's settings,
+    K1 and K2 ``_ext`` launches asserted against the code's count;
+12c. ``multidevice_2rank``: two processes on the one card in a gloo
+    world (``--md-worker``; NCCL refuses two ranks on one device), CUDA
+    tensors through real halo exchanges staged through pinned host
+    buffers: the sharded products on g=160 and config #3's g=1000 matrix
+    against the one-rank products, a shift-invert ``compute_locked`` at
+    3-D g=32, an ELL IRLM and a Davidson solve, and the share of the
+    wall spent in collectives;
 13. a ``kernels`` line with each kernel's numbers;
 14. the last line, ``{"ok": true, "device": {...}}``.
 
 Each path (the probes, config #2, config #3, config #5a, config #4,
 config #5b, each frontend call, each mixed-precision solve, the north
-star) sets the
+star, the g=160 sharded solve) sets the
 launch counters to 0 just before it and reads them just after. Any
 failed check raises, so the script exits non-zero and prints no ``ok``
 line. Without a CUDA device it exits with code 2 before any phase. Only
@@ -168,6 +184,11 @@ REPLACES = {
         "dia_spmv_ds_padded :83, dia_spmv_ds_ext :116); also "
         "scripts/tpu_dia_ds_probe.py:67 dia_spmv_ds",
     ),
+    "dia_spmv_ds_ext": (
+        "spectra_tpu/ops/dia_ds.py:116",
+        "spectra_tpu/ops/dia_ds.py::dia_spmv_ds_ext, the halo-extended entry of "
+        "_ds_pallas :143 (called from spectra_tpu/parallel/stencil_spmv.py:173-296)",
+    ),
     "stream_scale": (
         "scripts/tpu_pallas_stream_probe.py:29",
         "scripts/tpu_pallas_stream_probe.py::scale_pallas",
@@ -188,6 +209,7 @@ REPLACES = {
 SOURCES = {
     "dia_spmv": "dia_spmv.cu",
     "dia_spmv_ds": "dia_ds.cu",
+    "dia_spmv_ds_ext": "dia_ds.cu",
     "stream_scale": "stream_scale.cu",
     "dia_noshift": "dia_variants.cu",
     "dia_roll2d": "dia_variants.cu",
@@ -198,6 +220,11 @@ ROLL2D_ROWS = (32, 64, 128, 256)
 P4_PARENT_ROWS = (32, 256)
 #: Where the g=100 checkpoint round trip writes its file (gitignored).
 CHECKPOINT_DIR = "build/chip_smoke"
+#: The 3-D Laplacian of the JAX package's at-scale sharded record
+#: (``results/sharded_hilo_tpu_smoke.json:hbm_resident_3d_g160``).
+G_MD = 160
+#: The two-rank phase's solves: the 3-D g for shift-invert with locking.
+G_MD_SOLVE = 32
 
 
 def emit(**obj):
@@ -2786,6 +2813,455 @@ def compare_parent(torch, dmod, vmod, pf, rates, parent):
     return out
 
 
+def md_laplacian(g):
+    """The 2-D (``g`` = 1000) or 3-D Laplacian of a multi-device case."""
+    return laplacian_2d(g) if g == G_FULL else laplacian_3d(g)
+
+
+def sharded_kernel_check(torch, dmod, dsmod, op, mesh, x):
+    """The kernel a sharded operator's ``perform_op`` launches, held to
+    its plain version at the path's own shapes and data: ``op.perform_op
+    (x)`` (``x`` the rank's rows, a vector or a block) against the plain
+    product of the same rows. K1 for a ``ShardedStencilMatProd`` (the
+    rank's (d, rows_per) diagonals, offsets shifted by ``lo``, x
+    halo-extended by the mesh) and for a ``RowShardedMatProd`` of DIA
+    rows (n_cols = n over the gathered x); K2's ``_ext`` entry for the
+    hi/lo classes (each column of a block). Tolerance: bitwise. Returns
+    the record (None for an operator with no kernel: ELL, dense)."""
+    from spectra_tpu_torch.parallel import (
+        RowShardedMatProd,
+        ShardedStencilHiLoMatProd,
+        ShardedStencilMatProd,
+    )
+    from spectra_tpu_torch.parallel.mesh import _HiLoRows, _window
+
+    def ext_plain(dh, dl, offs, n, x_ext):
+        if x_ext.ndim == 2:
+            return torch.stack([ext_plain(dh, dl, offs, n, x_ext[:, c].contiguous())
+                                for c in range(x_ext.shape[1])], dim=1)
+        xh, xl = dsmod.split_f64(x_ext)
+        return dsmod.combine_f64(*dsmod.dia_spmv_ds_ext_plain(dh, dl, xh, xl,
+                                                              offsets=offs, n=n))
+
+    local = getattr(op, "local", None)
+    if isinstance(op, ShardedStencilMatProd):
+        kernel, offs = "dia_spmv", op.offsets
+        lo, hi = max(0, -min(offs)), max(0, max(offs))
+        x_in = mesh.halo(x, lo, hi)
+        d, n_rows = op.data.shape
+        ref = dmod.dia_spmv_plain(op.data, tuple(o + lo for o in offs), x_in, x_in.shape[0])
+    elif isinstance(op, ShardedStencilHiLoMatProd):
+        kernel, offs = "dia_spmv_ds_ext", op.offsets
+        lo, hi = max(0, -min(offs)), max(0, max(offs))
+        x_in = mesh.halo(x, lo, hi)
+        d, n_rows = len(offs), op.rows_per
+        ref = ext_plain(op.data_hi, op.data_lo, offs, n_rows, x_in)
+    elif isinstance(op, RowShardedMatProd) and type(local).__name__ == "DiaMatrix":
+        kernel, x_in = "dia_spmv", mesh.all_gather(x)
+        d, n_rows = local.data.shape
+        ref = dmod.dia_spmv_plain(local.data, local.offsets, x_in, local.n_cols)
+    elif isinstance(op, RowShardedMatProd) and isinstance(local, _HiLoRows):
+        kernel, offs = "dia_spmv_ds_ext", local.offsets
+        lo, hi = max(0, -min(offs)), max(0, max(offs))
+        x_in = _window(mesh.all_gather(x), local.first, local.rows, lo, hi)
+        d, n_rows = len(offs), local.rows
+        ref = ext_plain(local.data_hi, local.data_lo, offs, n_rows, x_in)
+    else:
+        return None
+    y = op.perform_op(x)
+    bitwise = bool(torch.equal(y, ref))
+    return dict(kernel=kernel, d=int(d), n=int(n_rows), n_cols=int(x_in.shape[0]),
+                columns=1 if x.ndim == 1 else int(x.shape[1]),
+                max_abs_err=float((y - ref).abs().max()), bitwise_equal=bitwise,
+                ok=bitwise)
+
+
+def expected_sharded_launches(smg, pf, cycles, solves):
+    """K1 and K2 ``_ext`` launches of a sharded shift-invert path, from
+    the port's code: per V-cycle ``nu1 + 1 + nu2`` K1 SpMVs on every
+    sharded level and every DIA level of the replicated tail, and one on
+    level 0 for ``mg_solve_sharded``'s residual; per solve one K1 SpMV
+    for the first residual and one SpMV of the operator itself, on K2's
+    ``_ext`` entry for a hi/lo operator (the backward-error gate of every
+    inner solve, and the trial's own check at build time)."""
+    tail = sum(isinstance(o, pf.DiaMatrix) for o in smg.bottom.ops)
+    per_cycle = (smg.nu1 + 1 + smg.nu2) * (len(smg.s_ops) + tail) + 1
+    return cycles * per_cycle + solves, solves
+
+
+def run_multidevice_g160(torch, stt, dmod, dsmod, pmg, pf, rates):
+    """One rank on NCCL at full size: the 3-D 7-point Laplacian at g=160
+    (n = 4,096,000, 28.5M nnz), the JAX package's at-scale sharded record.
+    ``sharded_stencil_op`` must route it to ``ShardedStencilHiLoMatProd``
+    (per-shard working set 9 x 8 x 4,096,000 bytes, over 120 MiB); its
+    SpMV is held to K1 f64 on the same matrix within 1e-13 relative, K2's
+    ``_ext`` entry bitwise to its plain version at the path's shapes
+    (halo-extended x from the mesh), and both are timed (cold median,
+    min, max; back to back) beside the unsharded ``DiaHiLoMatrix.matvec``,
+    the bound and one ``torch.sparse`` CSR product. Then the 20 smallest
+    by ``sharded_stencil_shift_solve`` and ``compute_locked`` with the
+    north-star script's settings, launches asserted against the code's
+    count. Returns the ``_ext`` entry's kernel-line numbers."""
+    from spectra_tpu_torch import distributed
+    from spectra_tpu_torch.parallel import (
+        ShardedStencilHiLoMatProd,
+        row_mesh,
+        sharded_stencil_op,
+        sharded_stencil_shift_solve,
+    )
+    from spectra_tpu_torch.parallel.mesh import _free_port
+    from spectra_tpu_torch.parallel.mg_sharded import ShardedMGState
+    from spectra_tpu_torch.parallel.stencil_spmv import host_dia
+    from spectra_tpu_torch.util.rng import SimpleRandom
+
+    bandwidth, f64_rate, f32_rate = rates
+    distributed.initialize(init_method=f"tcp://127.0.0.1:{_free_port()}",
+                           num_processes=1, process_id=0)
+    mesh = row_mesh()
+    if mesh.backend != "nccl" or mesh.staged:
+        raise RuntimeError(f"one rank runs {mesh.backend} ({mesh.transport}), not NCCL")
+    t0 = time.perf_counter()
+    A = md_laplacian(G_MD)
+    matrix_s = time.perf_counter() - t0
+    n = A.shape[0]
+    t0 = time.perf_counter()
+    op = sharded_stencil_op(host_dia(A), mesh)
+    torch.cuda.synchronize()
+    op_s = time.perf_counter() - t0
+    if not isinstance(op, ShardedStencilHiLoMatProd):
+        raise RuntimeError(f"auto-routing chose {type(op).__name__} at g={G_MD}")
+    offs, d, rp = op.offsets, len(op.offsets), op.rows_per
+    lo, hi = max(0, -min(offs)), max(0, max(offs))
+    dia64 = pf.dia_from_scipy(A)
+    hilo1 = pf.DiaHiLoMatrix.from_dia(dia64)
+    x = torch.randn(n, dtype=torch.float64, device="cuda")
+    ref = dia64.matvec(x)
+    y = op.perform_op(x)
+    rel = float((y - ref).abs().max() / ref.abs().max())
+    unsharded_rel = float((hilo1.matvec(x) - ref).abs().max() / ref.abs().max())
+    x_ext = mesh.halo(x, lo, hi)
+    xh, xl = dsmod.split_f64(x_ext)
+    yh, yl = dsmod.dia_spmv_ds_ext(op.data_hi, op.data_lo, xh, xl, offsets=offs, n=rp)
+    ph, pl = dsmod.dia_spmv_ds_ext_plain(op.data_hi, op.data_lo, xh, xl, offsets=offs, n=rp)
+    bitwise = bool(torch.equal(yh, ph) and torch.equal(yl, pl))
+    ext_err = float((dsmod.combine_f64(yh, yl) - dsmod.combine_f64(ph, pl)).abs().max())
+    emit(phase="kernel_vs_plain", kernel="dia_spmv_ds", entry="ext",
+         case=f"multidevice_g{G_MD}_one_rank", d=d, n=rp, lo=lo, hi=hi,
+         max_abs_err=ext_err, bitwise_equal=bitwise, ok=bitwise)
+    del yh, yl, ph, pl
+    if not bitwise or rel > 1e-13:
+        raise RuntimeError(f"g={G_MD}: _ext bitwise {bitwise}, sharded SpMV rel {rel}")
+    timer = Timer(torch)
+    csr = torch_csr(torch, A, np.float64)
+    terms = sum(n - abs(o) for o in offs)
+    ext_bytes = (8 * d + 16) * rp + 8 * (lo + hi)
+    ext_t = timed_entry(
+        timer,
+        lambda: dsmod.dia_spmv_ds_ext(op.data_hi, op.data_lo, xh, xl, offsets=offs, n=rp),
+        lambda: dsmod.dia_spmv_ds_ext_plain(op.data_hi, op.data_lo, xh, xl,
+                                            offsets=offs, n=rp),
+        lambda: csr @ x, ext_bytes, 23 * terms, f32_rate, bandwidth, back_to_back=True,
+    )
+    spmv = dict(
+        sharded=timer.stats(lambda: op.perform_op(x)),
+        sharded_back_to_back_ms=timer.back_to_back(lambda: op.perform_op(x)),
+        unsharded_hilo_matvec=timer.stats(lambda: hilo1.matvec(x)),
+        unsharded_back_to_back_ms=timer.back_to_back(lambda: hilo1.matvec(x)),
+        k1_f64=timer.stats(lambda: dia64.matvec(x)),
+        csr=timer.stats(lambda: csr @ x),
+    )
+    spmv_bound = ((d * 8 + 16) * n) / bandwidth * 1e3
+    emit(phase="multidevice_g160_spmv", g=G_MD, n=n, nnz=int(A.nnz), d=d,
+         op=type(op).__name__, per_shard_working_set=(d + 2) * 8 * rp,
+         rel_err_vs_k1_f64=rel, unsharded_rel_err_vs_k1_f64=unsharded_rel,
+         ext_kernel=ext_t, spmv_bound_ms=spmv_bound, matrix_s=matrix_s, op_build_s=op_s,
+         **spmv)
+    del dia64, hilo1, csr, xh, xl, x_ext, y, ref, x
+    torch.cuda.empty_cache()
+
+    v0 = SimpleRandom(0).random_vec(n)
+    torch.cuda.synchronize()
+    dmod.LAUNCHES = dsmod.LAUNCHES = 0
+    dmod.ENTRY_LAUNCHES.clear()
+    dsmod.ENTRY_LAUNCHES.clear()
+    pmg.CYCLES = pmg.SOLVES = 0
+    mesh.reset_stats()
+    t0 = time.perf_counter()
+    si = sharded_stencil_shift_solve(A, 0.0, mesh)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_cycles, build_solves = pmg.CYCLES, pmg.SOLVES
+    t0 = time.perf_counter()
+    e = stt.SymEigsShiftSolver.from_factored(si, 20, 40, 0.0)
+    e.set_matvec_granularity(True)
+    e.init(v0)
+    nconv = e.compute_locked(
+        stt.SortRule.LargestMagn, maxit=60, tol=1e-10,
+        sorting=stt.SortRule.SmallestAlge, want=stt.SortRule.SmallestAlge, max_rounds=3,
+    )
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    k1, k2 = dmod.LAUNCHES, dsmod.LAUNCHES
+    k2_ext = dsmod.ENTRY_LAUNCHES.get("ext", 0)
+    cycles, solves = pmg.CYCLES, pmg.SOLVES
+    stats = dict(mesh.stats)
+    smg = si.mg
+    if si.method != "mg" or not isinstance(smg, ShardedMGState):
+        raise RuntimeError(f"g={G_MD}: the shift-solve runs {si.method}, not the sharded MG")
+    # the path's kernels at its own shapes, after the counted run: K1 on
+    # every sharded level (halo-extended x), on the replicated tail's DIA
+    # levels, and K2's _ext entry on the shifted operator
+    checks = [(f"sharded_level{lv}", o) for lv, o in enumerate(smg.s_ops)]
+    for case, o in [*checks, ("shifted", si.shifted)]:
+        rec = sharded_kernel_check(torch, dmod, dsmod, o, mesh,
+                                   torch.randn(o.rows() // mesh.size, dtype=torch.float64,
+                                               device="cuda"))
+        emit(phase="kernel_vs_plain", case=f"multidevice_g{G_MD}_{case}", **rec)
+        if not rec["ok"]:
+            raise RuntimeError(f"g={G_MD}: {rec['kernel']} is not bitwise its plain "
+                               f"version on {case}")
+    check_levels(torch, dmod, pf, smg.bottom, f"multidevice_g{G_MD}_tail")
+    exp_k1, exp_ext = expected_sharded_launches(smg, pf, cycles, solves)
+    vals = e.eigenvalues()
+    lam = analytic_3d_smallest(G_MD)
+    captured = prefix_captured(vals, lam)
+    err = float(np.abs(np.sort(vals) - lam[:20]).max()) if len(vals) == 20 else None
+    rounds = e.locking_rounds()
+    for r in rounds:
+        r.pop("values")
+    steps = sum(r["operations"] for r in rounds)
+    # The inner solves' all-reduces, from the code: per solve the norms of
+    # b and of the first residual and the gate's three, per V-cycle one;
+    # the rest are the Lanczos driver's (and the build's one maximum).
+    driver_ar = stats["all_reduce"] - (5 * solves + cycles)
+    emit(phase="multidevice_g160", g=G_MD, n=n, nnz=int(A.nnz), backend=mesh.backend,
+         transport=mesh.transport, ranks=mesh.size, nconv=nconv, info=e.info().name,
+         certified=e.certified(), prefix_captured=captured, max_err_vs_analytic=err,
+         per_round=rounds, restarts=e.num_iterations(), operations=e.num_operations(),
+         v_cycles=cycles, inner_solves=solves, build_v_cycles=build_cycles,
+         build_inner_solves=build_solves, sharded_levels=len(smg.s_ops),
+         tail_levels=len(smg.bottom.ops), level_dims=[list(dm) for dm in smg.dims_per_level],
+         k1_launches=k1, expected_k1_launches=exp_k1, k2_launches=k2,
+         k2_ext_launches=k2_ext, expected_k2_ext_launches=exp_ext,
+         k2_entry_launches=dict(dsmod.ENTRY_LAUNCHES), build_s=build_s,
+         build_parts_s=si.build_s, solve_s=solve_s, collectives=stats,
+         all_reduces_per_operation=stats["all_reduce"] / max(1, steps),
+         driver_all_reduces_per_operation=driver_ar / max(1, steps),
+         eigenvalues=vals.tolist())
+    if nconv != 20 or not e.certified() or captured != 20 or err is None or err > 1e-9:
+        raise RuntimeError(f"g={G_MD}: {nconv} converged, certified {e.certified()}, "
+                           f"prefix {captured}, error {err}")
+    if k1 != exp_k1 or k2 != k2_ext or k2_ext != exp_ext or k2_ext == 0:
+        raise RuntimeError(f"g={G_MD}: K1 {k1} (expected {exp_k1}), K2 {k2}, "
+                           f"_ext {k2_ext} (expected {exp_ext})")
+    return dict(ext_t=ext_t, ext_err=ext_err, launches=k2_ext, k1_launches=k1,
+                shape=f"d={d}, rows_per={rp}, halo {lo}+{hi}, f32 hi/lo planes "
+                      f"(g={G_MD}, one rank, ShardedStencilHiLoMatProd)")
+
+
+def md_worker(argv):
+    """One rank of ``run_multidevice_2rank``'s two-process gloo world on
+    the one card: ``--md-worker RANK PORT OUT``. Every product is held to
+    the one-rank product (a one-rank subgroup mesh, rank 0) within 1e-13
+    relative; the solves to their analytic or dense values."""
+    import torch
+    import scipy.sparse as sps
+
+    import spectra_tpu_torch as stt
+    from spectra_tpu_torch import distributed
+    from spectra_tpu_torch.ops import dia_ds as dsmod
+    from spectra_tpu_torch.ops import dia_spmv as dmod
+    from spectra_tpu_torch.parallel import (
+        ShardedEllMatProd,
+        ShardedStencilMatProd,
+        row_mesh,
+        shard_problem,
+        sharded_stencil_op,
+        sharded_stencil_shift_solve,
+    )
+    from spectra_tpu_torch.parallel.mg_sharded import ShardedMGState
+    from spectra_tpu_torch.parallel.stencil_spmv import host_dia
+    from spectra_tpu_torch.util.rng import SimpleRandom
+
+    rank, port, out = int(argv[0]), argv[1], argv[2]
+    distributed.initialize(init_method=f"tcp://127.0.0.1:{port}", num_processes=2,
+                           process_id=rank, local_device_ids=0, backend="gloo")
+    t_start = time.perf_counter()
+    mesh, one = row_mesh(), row_mesh(1)
+    res = dict(backend=mesh.backend, transport=mesh.transport, ranks=mesh.size,
+               device=str(mesh.device), products={}, solves={})
+    checks = []  # each path kernel against its plain version, this rank
+
+    for g in (G_MD, G_FULL):
+        A = md_laplacian(g)
+        n = A.shape[0]
+        rng = np.random.default_rng(g)
+        x = torch.from_numpy(rng.normal(size=n))
+        X = torch.from_numpy(rng.normal(size=(n, 10)))
+        dia = host_dia(A)
+        full = stt.SparseSymMatProd.from_full(A, device=mesh.device)  # DIA or hi/lo
+        builders = dict(
+            stencil_f64=lambda m: ShardedStencilMatProd.create(dia, m),
+            stencil_hilo_forced=lambda m: sharded_stencil_op(dia, m, hilo=True),
+            stencil_auto=lambda m: sharded_stencil_op(dia, m),
+            ell_halo=lambda m: ShardedEllMatProd.create(A, m),
+            row_sharded=lambda m: shard_problem(full, x, m)[0],
+        )
+        for name, build in builders.items():
+            row = {}
+            for label, m in (("two", mesh), ("one", one)):
+                if m is None:
+                    continue
+                xs = {"vector": m.local_rows(x).to(m.device)}
+                if name != "row_sharded" or g == G_FULL:
+                    xs["block_10"] = m.local_rows(X).to(m.device).contiguous()
+                t0 = time.perf_counter()
+                op = build(m)
+                t1 = time.perf_counter()
+                ys = {k: op.perform_op(v) for k, v in xs.items()}
+                torch.cuda.synchronize()
+                row[label] = {k: distributed.gather_rows(v, m).cpu() for k, v in ys.items()}
+                row[label + "_class"] = type(op).__name__
+                row[label + "_build_s"] = t1 - t0
+                row[label + "_product_s"] = time.perf_counter() - t1
+                for k, v in xs.items():
+                    rec = sharded_kernel_check(torch, dmod, dsmod, op, m, v)
+                    if rec is not None:
+                        checks.append(dict(case=f"g{g}_{name}_{label}_rank{rank}_{k}", **rec))
+                del op, ys, xs
+            if rank == 0:
+                errs = {k: float((row["two"][k] - row["one"][k]).abs().max()
+                                 / row["one"][k].abs().max()) for k in row["two"]}
+                res["products"][f"g{g}_{name}"] = dict(
+                    rel_err_vs_one_rank=errs, two_rank_class=row["two_class"],
+                    build_s=row["two_build_s"], product_s=row["two_product_s"])
+        del full, dia, A
+        torch.cuda.empty_cache()
+
+    # solves at small g, to the reference tests' tolerances
+    g = G_MD_SOLVE
+    A = laplacian_3d(g)
+    si = sharded_stencil_shift_solve(A, 0.0, mesh)
+    e = stt.SymEigsShiftSolver.from_factored(si, 6, 20, 0.0)
+    e.init(SimpleRandom(0).random_vec(g**3))
+    t0 = time.perf_counter()
+    nconv = e.compute_locked(stt.SortRule.LargestMagn, maxit=60, tol=1e-10,
+                             sorting=stt.SortRule.SmallestAlge,
+                             want=stt.SortRule.SmallestAlge, max_rounds=3)
+    vals = e.eigenvalues()
+    lam = analytic_3d_smallest(g)
+    res["solves"][f"shift_invert_locked_3d_g{g}"] = dict(
+        nconv=nconv, certified=e.certified(), method=si.method,
+        restarts=e.num_iterations(), operations=e.num_operations(),
+        max_err_vs_analytic=float(np.abs(np.sort(vals) - lam[: len(vals)]).max()),
+        wall_s=time.perf_counter() - t0,
+        ok=bool(nconv == 6 and e.certified()
+                and np.abs(np.sort(vals) - lam[:6]).max() < 1e-9))
+    if isinstance(si.mg, ShardedMGState):
+        for lv, o in enumerate(si.mg.s_ops):
+            v = torch.randn(o.rows() // mesh.size, dtype=torch.float64, device=mesh.device)
+            rec = sharded_kernel_check(torch, dmod, dsmod, o, mesh, v)
+            checks.append(dict(case=f"shift_invert_g{g}_sharded_level{lv}_rank{rank}", **rec))
+    rs = np.random.RandomState(3)
+    B = sps.random(128, 128, density=0.08, random_state=rs, format="csr")
+    B = (B + B.T).tocsr()
+    t0 = time.perf_counter()
+    e = stt.SymEigsSolver(ShardedEllMatProd.create(B, mesh), 4, 16)
+    e.init(SimpleRandom(0).random_vec(128))
+    nconv = e.compute(stt.SortRule.LargestMagn)
+    want = np.linalg.eigvalsh(B.toarray())
+    want = want[np.argsort(-np.abs(want))][:4]
+    res["solves"]["ell_irlm_n128"] = dict(
+        nconv=nconv, info=e.info().name, restarts=e.num_iterations(),
+        operations=e.num_operations(), wall_s=time.perf_counter() - t0,
+        max_err_vs_eigvalsh=float(np.abs(np.sort(e.eigenvalues()) - np.sort(want)).max()),
+        ok=bool(nconv == 4
+                and np.abs(np.sort(e.eigenvalues()) - np.sort(want)).max() < 1e-10))
+    nd = 256
+    D = (laplacian_2d(16) + sps.diags(np.arange(nd) * 0.05)).tocsr()
+    t0 = time.perf_counter()
+    dav = stt.DavidsonSymEigsSolver(ShardedEllMatProd.create(D, mesh), 3, 12)
+    nconv = dav.compute(stt.SortRule.LargestAlge, maxit=100, tol=1e-9)
+    want = np.sort(np.linalg.eigvalsh(D.toarray()))[-3:]
+    err = float(np.abs(np.sort(dav.eigenvalues()) - want).max())
+    res["solves"]["davidson_g16"] = dict(
+        nconv=nconv, iterations=dav.num_iterations(), operations=dav.num_operations(),
+        max_err_vs_eigvalsh=err, wall_s=time.perf_counter() - t0,
+        ok=bool(nconv == 3 and err < 1e-7))
+    res["wall_s"] = time.perf_counter() - t_start
+    res["collectives"] = dict(mesh.stats)
+    res["collective_share_of_wall"] = mesh.stats["seconds"] / res["wall_s"]
+    res["exchange_share_of_wall"] = mesh.stats["exchange_s"] / res["wall_s"]
+    res["exchange_us"] = mesh.stats["exchange_s"] / max(1, mesh.stats["exchange"]) * 1e6
+    import torch.distributed as dist
+
+    every = [None] * mesh.size
+    dist.all_gather_object(every, checks)
+    res["kernel_checks"] = [c for part in every for c in part]
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def run_multidevice_2rank(torch):
+    """Two processes on the one card, spawned here, each a rank of a
+    gloo world (``backend="gloo"`` passed explicitly: NCCL refuses two
+    ranks on one device). They move CUDA tensors through real halo
+    exchanges, staged through pinned host buffers (gloo's transport).
+    Products on g=160 and on config #3's 2-D g=1000 matrix (stencil f64,
+    vector and 10-column block; hi/lo forced and auto; ELL halo, vector
+    and block; ``RowShardedMatProd``) against the one-rank product; a
+    shift-invert ``compute_locked`` at 3-D g=32, a ``ShardedEllMatProd``
+    IRLM and a Davidson solve. Prints the wall and the share of it the
+    ranks spent in collectives."""
+    from spectra_tpu_torch.parallel.mesh import _free_port
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = os.path.join(CHECKPOINT_DIR, "multidevice_2rank.json")
+    os.makedirs(CHECKPOINT_DIR, exist_ok=True)
+    port = str(_free_port())
+    t0 = time.perf_counter()
+    procs = [
+        subprocess.Popen([sys.executable, os.path.abspath(__file__), "--md-worker",
+                          str(r), port, out], stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+        for r in range(2)
+    ]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    if any(p.returncode != 0 for p in procs):
+        raise RuntimeError("a rank of the two-rank world failed:\n"
+                           + "\n".join(log[-3000:] for log in logs))
+    with open(out) as f:
+        res = json.load(f)
+    checks = res.pop("kernel_checks")
+    for rec in checks:
+        emit(phase="kernel_vs_plain", **{k: v for k, v in rec.items() if k != "case"},
+             case=f"multidevice_2rank_{rec['case']}")
+    bad = [rec["case"] for rec in checks if not rec["ok"]]
+    if bad or not checks:
+        raise RuntimeError(f"two-rank path kernels not bitwise their plain versions: {bad}")
+    worst = max(v for p in res["products"].values() for v in p["rel_err_vs_one_rank"].values())
+    emit(phase="multidevice_2rank", phase_wall_s=wall, worst_rel_err_vs_one_rank=worst, **res)
+    if worst > 1e-13 or not all(s["ok"] for s in res["solves"].values()):
+        raise RuntimeError("the two-rank products or solves failed their checks")
+    if res["backend"] != "gloo" or res["ranks"] != 2:
+        raise RuntimeError(f"the two-rank world ran {res['backend']} on {res['ranks']} ranks")
+    return res
+
+
 def kernel_entry(name, launches, max_abs_err, t, shape, **extra):
     replaces, function = REPLACES[name]
     return dict(
@@ -2807,6 +3283,8 @@ def main(argv):
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     parent = None
+    if argv[:1] == ["--md-worker"] and len(argv) == 4:
+        return md_worker(argv[1:])
     if argv[:1] == ["--k1-parent"] and len(argv) == 2:
         parent = argv[1]
     elif argv:
@@ -2902,6 +3380,14 @@ def main(argv):
     )
     phase("north_star_profile", profile_inner_solves, torch, ns_op,
           "profile_north_star_inner_solves")
+    del ns_op
+    torch.cuda.empty_cache()
+    md = phase("multidevice_g160", run_multidevice_g160, torch, stt, dmod, dsmod, pmg,
+               pf, rates)
+    phase("multidevice_2rank", run_multidevice_2rank, torch)
+    emit(phase="multidevice_walls", g160_s=walls["multidevice_g160"],
+         two_rank_s=walls["multidevice_2rank"],
+         total_s=walls["multidevice_g160"] + walls["multidevice_2rank"])
     for t in k1_levels:  # launches per north-star run, from its levels
         ns = next((r for r in level_t if r["n"] == t["n"] and r["d"] == t["d"]), None)
         if ns is None:
@@ -2926,7 +3412,7 @@ def main(argv):
             block_timings=k1_blocks,
             launches_frontends=k1_frontends,
             launches_mixed_by_n={str(k): v for k, v in k1_mixed.items()},
-            launches_north_star=k1_ns,
+            launches_north_star=k1_ns, launches_multidevice_g160=md["k1_launches"],
             north_star_levels=[t for t in level_t if t["kernel"] == "dia_spmv"],
             k1_levels=k1_levels, launch_floor=k1_floor,
             mode_a_g243=ds_t["g243"]["A_k1_f64"],
@@ -2937,6 +3423,11 @@ def main(argv):
             "(north-star operator, DiaHiLoMatrix.matvec)",
             modes=ds_t, launches_north_star=k2_ns, launches_config3=0,
             north_star_levels=[t for t in level_t if t["kernel"] == "dia_spmv_ds"],
+        ),
+        kernel_entry(
+            "dia_spmv_ds_ext", md["launches"], md["ext_err"], md["ext_t"], md["shape"],
+            launches_path="multidevice_g160: the sharded shift-invert solve "
+                          "(ShardedStencilHiLoMatProd.perform_op)",
         ),
         kernel_entry(
             "stream_scale", stream_t["launches"], stream_t["max_abs_err"],
@@ -2976,6 +3467,9 @@ def main(argv):
         ),
     ])
     emit(phase_walls=walls, total_s=sum(walls.values()))
+    import torch.distributed as tdist
+
+    tdist.destroy_process_group()
     emit(ok=True, device=dict(
         platform="gpu", kind=name, count=torch.cuda.device_count()
     ))

@@ -33,6 +33,12 @@ refines in f64. Host sparse conversions and the multigrid hierarchy's
 products run in the port's native library (``csrc/sparse_kernels.cpp``,
 built by ``g++`` on first use).
 
+The multi-device layer (``parallel``, ``distributed``, exported lazily)
+row-partitions an operator and the Krylov vectors over one process per
+device on ``torch.distributed``: halo-exchange stencil and ELL SpMVs,
+the sharded multigrid, and the all-reduced inner products of every
+driver.
+
 This package imports torch, numpy and scipy, never jax or
 ``spectra_tpu``.
 """
@@ -145,6 +151,8 @@ _LAZY = {
 _LAZY_MODULES = {
     "io": "spectra_tpu_torch.io",
     "profiling": "spectra_tpu_torch.util.profiling",
+    "parallel": "spectra_tpu_torch.parallel",
+    "distributed": "spectra_tpu_torch.distributed",
 }
 
 

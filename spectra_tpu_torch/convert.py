@@ -3,7 +3,8 @@
 The arrays come in as numpy arrays (``np.asarray`` of the JAX
 objects), so this module never imports ``spectra_tpu``. The tests use
 it to start the port from exactly the JAX package's state, e.g. a
-restart compression from one JAX Krylov state.
+restart compression from one JAX Krylov state, or to multiply the JAX
+package's halo plan and hi/lo shards.
 """
 
 import numpy as np
@@ -75,3 +76,37 @@ def bk_factors_from_numpy(L, d, e, is2x2, perm, ok, device=None) -> BKFactors:
         perm=_tensor(np.asarray(perm, np.int64), device),
         ok=bool(ok),
     )
+
+
+def halo_plan_from_numpy(n, n_parts, rows_per, dists, halo_sizes, send_idx,
+                         cols_local, vals_local, b_rows, b_pos, b_vals):
+    """A port :class:`~spectra_tpu_torch.parallel.halo_spmv.HaloPlan` from
+    the arrays of a JAX ``HaloPlan`` (its fields, in order), for
+    :meth:`ShardedEllMatProd.from_plan` on a mesh of ``n_parts`` ranks."""
+    from spectra_tpu_torch.parallel.halo_spmv import HaloPlan
+
+    return HaloPlan(
+        n=int(n), n_parts=int(n_parts), rows_per=int(rows_per),
+        dists=tuple(int(d) for d in dists),
+        halo_sizes=tuple(int(h) for h in halo_sizes),
+        send_idx=tuple(np.asarray(s, np.int32) for s in send_idx),
+        cols_local=np.asarray(cols_local, np.int32),
+        vals_local=np.asarray(vals_local),
+        b_rows=np.asarray(b_rows, np.int32), b_pos=np.asarray(b_pos, np.int32),
+        b_vals=np.asarray(b_vals),
+    )
+
+
+def hilo_shards_from_numpy(data_hi, data_lo, n_dev: int, rows_per: int):
+    """The global hi/lo planes (d, n_dev * rows_per) of the JAX package's
+    ``ShardedStencilHiLoMatProd`` planes (d, n_dev * n_pad), each
+    shard's chunk padding stripped (``stencil_spmv.py:367-380``). The
+    planes of a rank of any equal row partition are a column block of
+    them (:meth:`ShardedStencilHiLoMatProd.from_planes`)."""
+    out = []
+    for plane in (data_hi, data_lo):
+        plane = np.asarray(plane, np.float32)
+        d = plane.shape[0]
+        shards = plane.reshape(d, n_dev, plane.shape[1] // n_dev)[:, :, :rows_per]
+        out.append(np.ascontiguousarray(shards.reshape(d, n_dev * rows_per)))
+    return tuple(out)

@@ -22,6 +22,8 @@ import math
 import numpy as np
 import torch
 
+from spectra_tpu_torch.ops.gemv import vec_norm
+
 
 def cheb_coeffs(alpha, beta):
     """Interval scalars ``(theta, delta, sigma1)`` of the classical
@@ -71,7 +73,8 @@ def chebyshev_solve(matvec, b, alpha, beta, **kwargs):
 
 
 def chebyshev_solve_state(matvec, b, alpha, beta, rtol=1e-12,
-                          maxiter: int = 40000, check_every: int = 500):
+                          maxiter: int = 40000, check_every: int = 500,
+                          mesh=None):
     """Like :func:`chebyshev_solve`, also returning the final adapted
     ``alpha``, so an operator can learn its interval once at build time.
 
@@ -82,10 +85,12 @@ def chebyshev_solve_state(matvec, b, alpha, beta, rtol=1e-12,
     (and at least 2 %), ``alpha`` shrinks 4x (not below ``4 eps beta``,
     at most 6 times) with a warm restart and four windows of cooling.
     Stops at ``rtol``, ``maxiter``, or eight windows in a row without a
-    2 % gain on the best residual. Returns ``(x, relres, alpha)``."""
+    2 % gain on the best residual. Returns ``(x, relres, alpha)``.
+    ``mesh``: b and x hold a rank's rows of a row mesh, and the norms
+    are all-reduced."""
     beta = float(beta)
     eps = float(torch.finfo(b.dtype).eps)
-    bnorm = float(torch.linalg.vector_norm(b))
+    bnorm = float(vec_norm(b, mesh))
     safe_bnorm = bnorm if bnorm > 0 else 1.0
 
     def warm_start(x, a):
@@ -100,7 +105,7 @@ def chebyshev_solve_state(matvec, b, alpha, beta, rtol=1e-12,
         x, r, d, rho = cheb_iterations(
             matvec, (x, r, d, rho), cheb_coeffs(a, beta), check_every
         )
-        relres = float(torch.linalg.vector_norm(r)) / safe_bnorm
+        relres = float(vec_norm(r, mesh)) / safe_bnorm
         new_best = min(best, relres)
         b4 = hist[0]
         alpha_floor = 4.0 * eps * beta

@@ -24,6 +24,11 @@ its column of H in place.
 The basis keeps the invariant that **rows >= k of V are exactly zero**,
 so every projection is a full-width (m, n) product.
 
+On a row mesh (an operator with a ``mesh``) V, f and every n-length
+vector hold the rank's rows, n is the global size, and every value the
+loop reads back is all-reduced by the :class:`ArnoldiOp`, so every rank
+takes the same branches.
+
 Numerical rules are carried over from the reference verbatim
 (reference: include/Spectra/LinAlg/Lanczos.h:62-187, Arnoldi.h):
   * init forces v1 into range(A) and falls back to v0 when A v0 ~= 0;
@@ -157,7 +162,7 @@ def init(arnop, v0, m: int, seed: int = 0, hermitian: bool = False) -> KrylovSta
     # If v is already an eigenvector, f is pure rounding noise: force it
     # to zero so the next factorization step restarts cleanly.
     h00_h = h00.item()
-    if f.abs().max().item() < eps * abs(h00_h):
+    if arnop.max_abs(f).item() < eps * abs(h00_h):
         f = torch.zeros_like(f)
         beta = 0.0
     else:
@@ -175,9 +180,11 @@ def _expand_basis(arnop, V, step: int, seed: int):
     current ones are zero by invariant).
 
     Returns (f, fnorm, extra_ops). Up to 5 random tries; the first is
-    forced into range(A); each try gets <= 3 DGKS corrections.
+    forced into range(A); each try gets <= 3 DGKS corrections. On a row
+    mesh every rank draws the whole n-vector and keeps its rows, so a
+    sharded run restarts where the single-device one does.
     """
-    n = V.shape[1]
+    n = arnop.rows()
     eps = dtypes.eps(V.dtype)
     Vp = arnop.ortho_basis(V)
     gen = torch.Generator(device=V.device)
@@ -185,6 +192,8 @@ def _expand_basis(arnop, V, step: int, seed: int):
     for it in range(5):
         gen.manual_seed((seed * 1_000_003 + step) * 8 + it)
         rand = uniform_m05_05(gen, n, V.dtype, V.device)
+        if arnop.mesh is not None:
+            rand = arnop.mesh.local_rows(rand)
         if it == 0:
             f0 = arnop.perform_op(rand)
             extra_ops += 1
@@ -216,7 +225,7 @@ def _reorth_loop(arnop, V, f, beta: float, H, i: int, mode: str = "lanczos"):
     structured operator's extra ones are noise removal. Returns
     (f, beta).
     """
-    m, n = V.shape
+    m, n = V.shape[0], arnop.rows()
     eps = dtypes.eps(V.dtype)
     beta_thresh = eps * math.sqrt(n)
 
@@ -239,14 +248,16 @@ def _reorth_loop(arnop, V, f, beta: float, H, i: int, mode: str = "lanczos"):
             # Full column correction h <- h + Vf (entries past i are zero
             # by the zero-row invariant of V).
             H[:, i] += _h_entry(H, Vf_host[:m]).to(H.dtype)
-        Vf = arnop.adjoint_product(Vp, f)
-        Vf_host, beta = _read_with_norm(Vf, arnop.norm(f))
+        Vf, fnorm = arnop.adjoint_and_norm(Vp, f)
+        Vf_host, beta = _read_with_norm(Vf, fnorm)
         coeffs = Vf_host.tolist()
     return f, beta
 
 
 def _read_with_norm(x, norm):
-    """``(x on the host, float(norm))`` in one device-to-host read."""
+    """``(x on the host, float(norm))`` in one device-to-host read (on a
+    row mesh, after the one all-reduce of :meth:`ArnoldiOp.
+    adjoint_and_norm`)."""
     host = torch.cat([x, norm.reshape(1).to(x.dtype)]).cpu()
     return host[:-1], host[-1].real.item()
 
@@ -363,7 +374,7 @@ def _post_op_selective(arnop, V, H, v, w, h_sub: float, i: int, w_prev,
                        w_cur, force: bool, restarted: bool):
     """Everything after ``w = A v`` on the selective path: three-term
     recurrence, omega-recurrence estimate, conditional DGKS."""
-    m, n = V.shape
+    m, n = V.shape[0], arnop.rows()
     eps = dtypes.eps(V.dtype)
     near_0 = dtypes.near_zero(V.dtype)
 

@@ -10,26 +10,29 @@ The JAX ``while_loop`` becomes a host loop: every n-vector stays on the
 operator's device, and each step reads the two Lanczos scalars (alpha,
 the new beta) to the host in one transfer. The Givens recurrence and the
 stopping test run on those host floats (f64; the same IEEE operations
-the JAX package runs on device scalars of an f64 system).
+the JAX package runs on device scalars of an f64 system). For vectors
+row-sharded over a ``mesh`` the two scalars are all-reduced (two
+collectives a step: alpha enters z before z's norm).
 """
 
 import math
 
 import torch
 
-from spectra_tpu_torch.ops.gemv import vec_dot
+from spectra_tpu_torch.ops.gemv import vec_dot, vec_norm
 
 
-def minres(matvec, b, rtol=1e-12, maxiter=None):
+def minres(matvec, b, rtol=1e-12, maxiter=None, mesh=None):
     """Solve ``A x = b`` (A symmetric, possibly indefinite). Returns
     ``(x, relative_residual_estimate)``, the estimate a Python float.
-    Stops when ``|eta| <= rtol * |b|`` or after ``maxiter`` steps."""
-    n = b.shape[0]
+    Stops when ``|eta| <= rtol * |b|`` or after ``maxiter`` steps.
+    ``mesh``: b and x hold a rank's rows of a row mesh."""
+    n = b.shape[0] * (1 if mesh is None else mesh.size)
     if maxiter is None:
         # An inner solve that needs more is a failure to surface (NaN
         # poisoning upstream), not one to grind out.
         maxiter = min(10 * n, 20000)
-    beta1 = float(torch.linalg.vector_norm(b))
+    beta1 = float(vec_norm(b, mesh))
     safe_beta1 = beta1 if beta1 > 0 else 1.0
     v = b / safe_beta1
     x = torch.zeros_like(b)
@@ -43,11 +46,9 @@ def minres(matvec, b, rtol=1e-12, maxiter=None):
     while abs(eta) > tol_abs and it < maxiter:
         # Lanczos step
         z = matvec(v) - beta * v_old
-        alpha_t = vec_dot(v, z)
+        alpha_t = vec_dot(v, z, mesh)
         z = z - alpha_t * v
-        alpha, beta_new = torch.stack(
-            [alpha_t, torch.linalg.vector_norm(z)]
-        ).tolist()
+        alpha, beta_new = torch.stack([alpha_t, vec_norm(z, mesh)]).tolist()
         v_new = z / (beta_new if beta_new > 0 else 1.0)
 
         # Apply the two previous rotations to the new tridiagonal column

@@ -22,9 +22,10 @@ O(sqrt(kappa)) iterations.
   precomputed inverse at the coarsest level. :func:`mg_solve` is a host
   loop that reads one residual norm per cycle (the JAX ``while_loop``).
 
-``CYCLES`` and ``SOLVES`` count the V-cycles and the :func:`mg_solve`
-calls since import (a caller may reset them to 0), so a run can derive
-the SpMVs its solves made.
+``CYCLES`` and ``SOLVES`` count the V-cycles and the calls of
+:func:`mg_solve` and of the sharded ``mg_solve_sharded`` since import
+(a caller may reset them to 0), so a run can derive the SpMVs its
+solves made.
 """
 
 import dataclasses
@@ -33,11 +34,12 @@ import math
 import numpy as np
 import torch
 
+from spectra_tpu_torch.ops.gemv import vec_norm
 from spectra_tpu_torch.util.capabilities import resolve_device
 
-#: V-cycles run by :func:`mg_solve` since import.
+#: V-cycles run by :func:`mg_solve` (and the sharded solve) since import.
 CYCLES = 0
-#: Calls of :func:`mg_solve` since import.
+#: Calls of :func:`mg_solve` (and the sharded solve) since import.
 SOLVES = 0
 
 
@@ -291,6 +293,10 @@ class MGState:
     def n(self) -> int:
         return int(np.prod(self.dims_per_level[0]))
 
+    def solve(self, b, rtol=1e-12, maxiter: int = 100, x0=None):
+        """:func:`mg_solve` on this hierarchy."""
+        return mg_solve(self, b, rtol, maxiter, x0)
+
 
 def _lam_max_jacobi(csr, diag, iters: int = 12, seed: int = 7) -> float:
     """Overestimate of ``lambda_max(D^{-1} A)``: power iteration over
@@ -495,22 +501,31 @@ def mg_solve(mg: MGState, b, rtol=1e-12, maxiter: int = 100, x0=None):
     when a cycle (after the fourth) no longer takes 20 % off the
     residual. Returns ``(x, cycles)``. One solve makes
     ``1 + cycles`` SpMVs with ``mg.ops[0]`` besides the V-cycles'."""
+    return stationary_solve(
+        mg.ops[0], lambda r: v_cycle(mg, r, torch.zeros_like(r)), b, rtol,
+        maxiter, x0,
+    )
+
+
+def stationary_solve(op, cycle, b, rtol, maxiter: int, x0=None, mesh=None):
+    """The loop of :func:`mg_solve` for any cycle ``cycle(r)`` (an
+    approximate ``A^{-1} r``) and operator ``op``; ``mesh`` all-reduces
+    the norms of row-sharded vectors (the sharded multigrid)."""
     global CYCLES, SOLVES
-    op = mg.ops[0]
     b = b.to(op.dtype)
     x = torch.zeros_like(b) if x0 is None else x0.to(op.dtype)
-    bnorm = float(torch.linalg.vector_norm(b))
+    bnorm = float(vec_norm(b, mesh))
     tol = rtol * max(bnorm, float(torch.finfo(op.dtype).tiny))
     r = b - op.matvec(x)
-    rn, rn_prev = float(torch.linalg.vector_norm(r)), math.inf
+    rn, rn_prev = float(vec_norm(r, mesh)), math.inf
     k = 0
     # A healthy V(2,2) cycle contracts 5-10x; one that no longer shaves
     # 20 % is not contracting (sigma inside the spectrum), and the rest
     # of maxiter would not help.
     while rn > tol and k < maxiter and (rn < 0.8 * rn_prev or k < 4):
-        x = x + v_cycle(mg, r, torch.zeros_like(r))
+        x = x + cycle(r)
         r = b - op.matvec(x)
-        rn, rn_prev = float(torch.linalg.vector_norm(r)), rn
+        rn, rn_prev = float(vec_norm(r, mesh)), rn
         k += 1
     CYCLES += k
     SOLVES += 1

@@ -14,10 +14,16 @@ package's ``fori_loop`` does.
 import torch
 
 
-def qr_orthogonalisation(A):
+def qr_orthogonalisation(A, mesh=None):
     """The columns of A orthonormalized by a reduced QR, the signs fixed
     so that R has a non-negative diagonal. The result is row-major
-    contiguous: a block the DIA kernel takes as it is."""
+    contiguous: a block the DIA kernel takes as it is. For A holding a
+    rank's rows of a row ``mesh``, the block is all-gathered, the QR
+    runs replicated on every rank and each keeps its rows: what GSPMD
+    does with a QR of a row-sharded array, with the single-device
+    rounding."""
+    if mesh is not None:
+        return mesh.local_rows(qr_orthogonalisation(mesh.all_gather(A))).contiguous()
     Q, R = torch.linalg.qr(A)
     d = torch.diagonal(R)
     signs = torch.sgn(torch.where(d == 0, torch.ones_like(d), d))

@@ -10,6 +10,12 @@ locked Ritz vectors (``compute_locked``) in the same metric.
 :class:`JStructuredArnoldiOp` is the operator of the real embedding of
 a Hermitian problem, whose residuals are also orthogonalized against
 ``J V``.
+
+An operator (or metric) that carries a ``mesh`` (the row-sharded
+operators of :mod:`spectra_tpu_torch.parallel`) makes every inner
+product, projection and norm the sum over the mesh's ranks: one
+all-reduce each, identical on every rank. Without a mesh nothing
+changes.
 """
 
 import torch
@@ -33,6 +39,8 @@ class ArnoldiOp:
     def __init__(self, op, bop=None):
         self.op = op
         self.bop = bop
+        #: The row mesh of a sharded operator or metric, else None.
+        self.mesh = getattr(op, "mesh", None) or getattr(bop, "mesh", None)
 
     @classmethod
     def create(cls, op, bop=None):
@@ -65,16 +73,33 @@ class ArnoldiOp:
 
     def inner_product(self, x, y):
         """<x, y> = x^H B y, a 0-d tensor."""
-        return vec_dot(x, self.apply_b(y))
+        return vec_dot(x, self.apply_b(y), self.mesh)
 
     def adjoint_product(self, X, y):
         """<x_i, y>_B for a row-major basis block X (m, n): the
         projection GEMV of the hot loop."""
-        return basis_proj(X, self.apply_b(y))
+        h = basis_proj(X, self.apply_b(y))
+        return h if self.mesh is None else self.mesh.all_reduce(h)
 
     def norm(self, x):
         """The B-norm sqrt(real(x^H B x)), a 0-d tensor."""
         return torch.sqrt(torch.real(self.inner_product(x, x)))
+
+    def adjoint_and_norm(self, X, y):
+        """``(adjoint_product(X, y), norm(y))``: on a mesh, both from ONE
+        all-reduce of the local partial sums."""
+        if self.mesh is None:
+            return self.adjoint_product(X, y), self.norm(y)
+        part = torch.cat([
+            basis_proj(X, self.apply_b(y)), vec_dot(y, self.apply_b(y)).reshape(1)
+        ])
+        total = self.mesh.all_reduce(part)
+        return total[:-1], torch.sqrt(torch.real(total[-1]))
+
+    def max_abs(self, x):
+        """max |x_i| over every entry (every rank), a 0-d tensor."""
+        m = x.abs().max()
+        return m if self.mesh is None else self.mesh.all_reduce(m, "max")
 
     def deflate(self, y):
         """Hook for deflated operators; identity here."""
@@ -139,6 +164,10 @@ class LockedArnoldiOp:
         return self.inner.bop
 
     @property
+    def mesh(self):
+        return self.inner.mesh
+
+    @property
     def dtype(self):
         return self.inner.dtype
 
@@ -171,6 +200,12 @@ class LockedArnoldiOp:
 
     def norm(self, x):
         return self.inner.norm(x)
+
+    def adjoint_and_norm(self, X, y):
+        return self.inner.adjoint_and_norm(X, y)
+
+    def max_abs(self, x):
+        return self.inner.max_abs(x)
 
     def ortho_basis(self, V):
         return self.inner.ortho_basis(V)

@@ -62,7 +62,7 @@ import torch
 from spectra_tpu_torch.linalg import bkldlt
 from spectra_tpu_torch.matop.arnoldi_op import ArnoldiOp, LockedArnoldiOp
 from spectra_tpu_torch.matop.dense import _as_tensor, _hermitize, _symmetrize
-from spectra_tpu_torch.ops.gemv import vec_dot
+from spectra_tpu_torch.ops.gemv import vec_dot, vec_norm
 from spectra_tpu_torch.sparse.formats import symmetrize_scipy
 from spectra_tpu_torch.util.capabilities import resolve_device
 from spectra_tpu_torch.util.dtypes import eps as dtype_eps
@@ -254,15 +254,17 @@ def couple_inner_tolerance(obj, outer_tol: float):
     return obj
 
 
-def _poison_if_unconverged(mv, y, b, op_norm: float, accept_bw=1e-10):
+def _poison_if_unconverged(mv, y, b, op_norm: float, accept_bw=1e-10,
+                           mesh=None):
     """``y``, or NaNs where the solve's backward error
     ``|b - A y| / (|A| |y| + |b|)`` exceeds ``accept_bw``, so a failed
     inner solve surfaces as ``CompInfo.NumericalIssue`` instead of wrong
     eigenpairs. ``op_norm`` is any upper bound on |A| (Gershgorin,
-    computed once at build time). One SpMV, no host sync."""
-    bnorm = torch.linalg.vector_norm(b)
-    resid = torch.linalg.vector_norm(mv(y) - b)
-    scale = op_norm * torch.linalg.vector_norm(y) + torch.clamp(bnorm, min=1e-300)
+    computed once at build time). One SpMV, no host sync; on a row mesh
+    the norms are all-reduced, so every rank keeps or poisons alike."""
+    bnorm = vec_norm(b, mesh)
+    resid = vec_norm(mv(y) - b, mesh)
+    scale = op_norm * vec_norm(y, mesh) + torch.clamp(bnorm, min=1e-300)
     return torch.where(resid <= accept_bw * scale, y, torch.full_like(y, torch.nan))
 
 
@@ -394,6 +396,13 @@ class SparseShiftSolveBase:
     def device(self):
         return self.host_device if self.method == "splu" else self.shifted.device
 
+    @property
+    def mesh(self):
+        """The row mesh of a sharded ``shifted`` operator
+        (:func:`~spectra_tpu_torch.parallel.sharded_stencil_shift_solve`),
+        else None: the inner solve then reduces over it."""
+        return getattr(self.shifted, "mesh", None)
+
     def rows(self) -> int:
         return self.n
 
@@ -414,16 +423,17 @@ class SparseShiftSolveBase:
             else coupled_inner_rtol(1e-10, work_dtype)
         )
         maxiter = min(10 * self.n, 20000)
+        mesh = self.mesh
         if self.method == "mg":
-            from spectra_tpu_torch.linalg.multigrid import mg_solve
-
-            y, _ = mg_solve(self.mg, b, rtol=rtol, maxiter=100)
+            # MGState or the row-sharded ShardedMGState
+            y, _ = self.mg.solve(b, rtol=rtol, maxiter=100)
         elif self.method == "cheb":
             from spectra_tpu_torch.linalg.cheb_solve import chebyshev_solve
 
             alpha, beta = self.cheb_interval
             y, _ = chebyshev_solve(
-                mv, b, alpha, beta, rtol=rtol, maxiter=min(20 * self.n, 40000)
+                mv, b, alpha, beta, rtol=rtol, maxiter=min(20 * self.n, 40000),
+                mesh=mesh,
             )
         elif self.method == "minres":
             from spectra_tpu_torch.linalg.minres import minres
@@ -443,7 +453,7 @@ class SparseShiftSolveBase:
             if self.precond == "cheb":
                 # each transformed matvec costs cheb_degree SpMVs
                 maxiter = max(maxiter // self.cheb_degree, 50)
-            y, _ = minres(mv2, b2, rtol=rtol, maxiter=maxiter)
+            y, _ = minres(mv2, b2, rtol=rtol, maxiter=maxiter, mesh=mesh)
             y = recover(y)
         elif self.method == "cg":
             y = cg(mv, b, tol=rtol, maxiter=maxiter)
@@ -452,7 +462,7 @@ class SparseShiftSolveBase:
         else:
             raise ValueError(f"unknown shift-solve method {self.method!r}")
         return _poison_if_unconverged(
-            mv, y, b, self.op_norm, accept_bw=max(1e2 * rtol, 1e-10)
+            mv, y, b, self.op_norm, accept_bw=max(1e2 * rtol, 1e-10), mesh=mesh
         )
 
 

@@ -5,15 +5,26 @@ shape (m, n) with basis vector i in row ``V[i]``. The JAX package
 routes f64 on the TPU through broadcast-and-sum sweeps because the
 TPU's matrix unit emulates f64; the card has native f64, so every
 product here is a plain torch product (cuBLAS on the card, BLAS on
-the CPU).
+the CPU). On a row mesh (:mod:`spectra_tpu_torch.parallel`) the
+callers pass ``mesh`` and the n-length sums are all-reduced.
 """
 
 import torch
 
 
-def vec_dot(x, y):
-    """``<x, y> = conj(x) y`` for n-vectors, as a 0-d tensor."""
-    return torch.vdot(x, y)
+def vec_dot(x, y, mesh=None):
+    """``<x, y> = conj(x) y`` for n-vectors, as a 0-d tensor; for
+    vectors row-sharded over ``mesh``, the sum over its ranks."""
+    d = torch.vdot(x, y)
+    return d if mesh is None else mesh.all_reduce(d)
+
+
+def vec_norm(x, mesh=None):
+    """``||x||_2`` as a 0-d tensor; for x row-sharded over ``mesh``, the
+    root of the all-reduced sum of squares."""
+    if mesh is None:
+        return torch.linalg.vector_norm(x)
+    return torch.sqrt(mesh.all_reduce(torch.vdot(x, x).real))
 
 
 def basis_proj(X, y):

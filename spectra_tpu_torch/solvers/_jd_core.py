@@ -30,6 +30,11 @@ include/Spectra/JDSymEigsBase.h:141-185):
   iterations without a 10 % improvement; the best snapshot is what is
   reported.
 
+Over a row-sharded operator (one with a ``mesh``) the buffers hold
+the rank's rows: the Rayleigh matrix and the residual norms are
+all-reduced and the QR of the extension runs on the gathered block, so
+every rank takes the same branches.
+
 Status codes: 1 converged, 2 maxit or stagnation, 3 non-finite Ritz
 values. The correction is a function ``correction_fn(vals_c,
 residues_c, aux)`` on the device (the reference's CRTP seam).
@@ -64,12 +69,18 @@ def schedule(i0: int, c: int, max_space: int) -> list:
     return sizes
 
 
-def _rayleigh_ritz(V, W, size: int, selection: SortRule):
+def _gram(A, B, mesh):
+    """``A^T B`` summed over the rows of every rank."""
+    P = A.mT @ B
+    return P if mesh is None else mesh.all_reduce(P)
+
+
+def _rayleigh_ritz(V, W, size: int, selection: SortRule, mesh=None):
     """Ritz values (host) and small vectors (host, (M2, M2)) of the
     active space, sorted wanted first with the pad last."""
     M2 = V.shape[1]
     P = torch.zeros((M2, M2), dtype=torch.float64)
-    P[:size, :size] = (V[:, :size].mT @ W[:, :size]).cpu()
+    P[:size, :size] = _gram(V[:, :size], W[:, :size], mesh).cpu()
     P = 0.5 * (P + P.T)
     j = torch.arange(M2, dtype=torch.float64)
     pad = j >= size
@@ -80,15 +91,15 @@ def _rayleigh_ritz(V, W, size: int, selection: SortRule):
     return w[ind], s[:, ind]
 
 
-def _orth_extend(V, size: int, C):
+def _orth_extend(V, size: int, C, mesh=None):
     """C orthogonalized twice against the active columns of V (project,
     then QR), written at ``[size, size + c)`` (at ``M2 - c`` where that
     runs past the buffer, as ``dynamic_update_slice`` clamps). Returns
     the contiguous block."""
     Vs = V[:, :size]
     for _ in range(2):  # reference: Orthogonalization twice_is_enough
-        C = C - Vs @ (Vs.mT @ C)
-        C = qr_orthogonalisation(C)
+        C = C - Vs @ _gram(Vs, C, mesh)
+        C = qr_orthogonalisation(C, mesh)
     start = min(size, V.shape[1] - C.shape[1])
     V[:, start : start + C.shape[1]] = C
     return C
@@ -100,6 +111,7 @@ def jd_compute(op, V0, aux, maxit: int, tol: float, *, max_space: int,
     """Run the JD iteration from the (n, i0) orthonormal, contiguous
     initial space V0 on ``op``'s device; see the module docstring."""
     n = V0.shape[0]
+    mesh = getattr(op, "mesh", None)
     sizes = schedule(i0, c, max_space)
     M2 = sizes[-1]
     dev, dtype = V0.device, V0.dtype
@@ -107,7 +119,7 @@ def jd_compute(op, V0, aux, maxit: int, tol: float, *, max_space: int,
     W = torch.zeros((n, M2), dtype=dtype, device=dev)
     V[:, :i0] = V0
     W[:, :i0] = op.perform_op(V0)
-    vals, small = _rayleigh_ritz(V, W, i0, selection)
+    vals, small = _rayleigh_ritz(V, W, i0, selection, mesh)
     # Stagnation patience: one full growth schedule (a restart can
     # unlock progress) plus slack.
     patience = 2 * len(sizes) + 6
@@ -132,13 +144,16 @@ def jd_compute(op, V0, aux, maxit: int, tol: float, *, max_space: int,
             W[:, size - c : size] = op.perform_op(block)
             nops += c
 
-        vals, small = _rayleigh_ritz(V, W, size, selection)
+        vals, small = _rayleigh_ritz(V, W, size, selection, mesh)
         Vs, Ws = V[:, :size], W[:, :size]
         vals_d = vals.to(dev, dtype)
         lead = small[:size, :nev].to(dev, dtype)
         ritz = Vs @ lead
         resid = Ws @ lead - ritz * vals_d[None, :nev]
-        norms = torch.linalg.vector_norm(resid, dim=0).cpu()
+        if mesh is None:
+            norms = torch.linalg.vector_norm(resid, dim=0).cpu()
+        else:
+            norms = torch.sqrt(mesh.all_reduce((resid * resid).sum(dim=0))).cpu()
         conv = norms < tol
         finite = bool(torch.isfinite(vals[:size]).all())
         it += 1
@@ -164,7 +179,7 @@ def jd_compute(op, V0, aux, maxit: int, tol: float, *, max_space: int,
                 ritz_c = Vs @ lead_c
                 resid_c = Ws @ lead_c - ritz_c * vals_d[None, :c]
             C = correction_fn(vals_d[:c], resid_c, aux).to(dtype)
-            block = _orth_extend(V, size, C)
+            block = _orth_extend(V, size, C, mesh)
             size += c
 
     # The best snapshot, not the last iterate: the same when converged,

@@ -16,6 +16,13 @@ back to the problem's eigenvectors (the Cholesky mode's ``L^{-H}``).
 ``eigenvalues()`` returns a real numpy array, as in the JAX package;
 ``eigenvectors()`` returns a tensor on the operator's device, complex
 for a complex Hermitian operator.
+
+Over a row-sharded operator (one that carries a ``mesh``,
+:mod:`spectra_tpu_torch.parallel`) the basis and the work vectors are
+``(m, rows_local)``, the start vectors are drawn whole on every rank
+and cut to its rows, and ``eigenvectors()`` returns the rank's rows, as
+the JAX package returns a row-sharded array
+(:func:`spectra_tpu_torch.distributed.gather_rows` assembles them).
 """
 
 import sys
@@ -25,7 +32,7 @@ import torch
 
 from spectra_tpu_torch.linalg.krylov import KrylovState
 from spectra_tpu_torch.matop.arnoldi_op import ArnoldiOp, LockedArnoldiOp
-from spectra_tpu_torch.ops.gemv import basis_apply_block
+from spectra_tpu_torch.ops.gemv import basis_apply_block, vec_norm
 from spectra_tpu_torch.solvers._herm_core import (
     IRLMResult,
     _LoopCarry,
@@ -65,6 +72,9 @@ class HermEigsBase:
         if ncv <= nev or ncv > n:
             raise ValueError("ncv must satisfy nev < ncv <= n, n is the size of matrix")
         self._n = n
+        # the rows this process holds: all of them, or a rank's
+        self._mesh = self._arnop.mesh
+        self._n_local = n if self._mesh is None else self._mesh.rows_per(n)
         self._nev = int(nev)
         self._ncv = int(ncv)
         self._dtype = op.dtype
@@ -227,21 +237,26 @@ class HermEigsBase:
     def init(self, init_resid=None):
         """Set the initial residual vector (default: the deterministic
         Uniform(-0.5, 0.5) stream with seed 0, bit-identical to the
-        reference's SimpleRandom). Accepts numpy arrays and tensors."""
+        reference's SimpleRandom). Accepts numpy arrays and tensors; over
+        a sharded operator either the whole vector (each rank keeps its
+        rows) or the rank's rows."""
         if init_resid is None:
             init_resid = SimpleRandom(0).random_vec(
                 self._n, numpy_dtype(self._dtype)
             )
-        v0 = torch.as_tensor(init_resid).to(self._device, self._dtype)
-        if v0.shape != (self._n,):
+        v0 = torch.as_tensor(init_resid)
+        if self._mesh is not None and v0.shape == (self._n,):
+            v0 = self._mesh.local_rows(v0)
+        v0 = v0.to(self._device, self._dtype)
+        if v0.shape != (self._n_local,):
             raise ValueError(f"initial residual must have shape ({self._n},)")
-        if torch.linalg.vector_norm(v0).item() < np.finfo(np.float64).tiny * 10:
+        if vec_norm(v0, self._mesh).item() < np.finfo(np.float64).tiny * 10:
             raise ValueError("initial residual vector cannot be zero")
         self._v0 = v0
         # The host copy for the native dense driver, which then needs no
         # read back from the card.
         self._v0_host = (
-            None if torch.is_tensor(init_resid)
+            None if torch.is_tensor(init_resid) or self._mesh is not None
             else np.asarray(init_resid, numpy_dtype(self._dtype))
         )
         self._info = CompInfo.NotComputed
@@ -456,7 +471,9 @@ class HermEigsBase:
         take = argsort_np(want, vals)[: self._nev]
         wvals = vals[take]
         starts = np.cumsum([0] + [b.shape[0] for b in blocks])
-        WX = torch.empty((len(take), self._n), dtype=self._dtype, device=self._device)
+        WX = torch.empty(
+            (len(take), self._n_local), dtype=self._dtype, device=self._device
+        )
         for b, blk in enumerate(blocks):
             for dst, g in enumerate(take):
                 if starts[b] <= g < starts[b + 1]:
@@ -469,7 +486,8 @@ class HermEigsBase:
             vectors_small=torch.eye(q, dtype=torch.float64)[:, order],
             conv=torch.ones(q, dtype=torch.bool),
             nconv=q, niter=niter, nops=nops,
-            V=WX, f=torch.zeros(self._n, dtype=self._dtype, device=self._device),
+            V=WX,
+            f=torch.zeros(self._n_local, dtype=self._dtype, device=self._device),
         )
         return self._finish_result(res)
 
@@ -532,7 +550,7 @@ class HermEigsBase:
             return V if nvec is None else V[:, : min(nvec, V.shape[1])]
         if self._result is None:
             return torch.zeros(
-                (self._n, 0), dtype=self._dtype, device=self._device
+                (self._n_local, 0), dtype=self._dtype, device=self._device
             )
         res = self._result
         small = res.vectors_small[:, res.conv]

@@ -32,13 +32,23 @@ class DavidsonSymEigsSolver(JDSymEigsBase):
     def setup_initial_search_space(self, selection: SortRule):
         """Unit vectors at the ``nvec_init`` extreme diagonal entries
         (reference: DavidsonSymEigsSolver.h:60-72), an (n, nvec_init)
-        block on the device."""
+        block on the device; over a row-sharded operator the extremes of
+        the whole (gathered) diagonal, and the rank's rows of the
+        block."""
         size = self._initial_search_space_size
-        ind = argsort(selection, self._diagonal)[:size]
+        mesh = getattr(self._op, "mesh", None)
+        diag = self._diagonal if mesh is None else mesh.all_gather(self._diagonal)
+        ind = argsort(selection, diag)[:size]
+        cols = torch.arange(size, device=self._device)
+        first, end = 0, self._op.rows()
+        if mesh is not None:
+            first, end = mesh.row_range(end)
+            mine = (ind >= first) & (ind < end)
+            ind, cols = ind[mine], cols[mine]
         basis = torch.zeros(
-            (self._op.rows(), size), dtype=self._diagonal.dtype, device=self._device
+            (end - first, size), dtype=self._diagonal.dtype, device=self._device
         )
-        basis[ind, torch.arange(size, device=self._device)] = 1.0
+        basis[ind - first, cols] = 1.0
         return basis
 
     def calculate_correction_vector(self):

@@ -54,6 +54,8 @@ class GenEigsBase(HermEigsBase):
         self._has_bop = bop is not None
         self._arnop = ArnoldiOp.create(op, bop)
         self._n = n
+        self._mesh = self._arnop.mesh
+        self._n_local = n if self._mesh is None else self._mesh.rows_per(n)
         self._nev = int(nev)
         self._ncv = int(ncv)
         self._dtype = op.dtype
@@ -168,7 +170,7 @@ class GenEigsBase(HermEigsBase):
         the operator's device."""
         if self._result is None:
             cdtype = self._dtype if self._dtype.is_complex else self._dtype.to_complex()
-            return torch.zeros((self._n, 0), dtype=cdtype, device=self._device)
+            return torch.zeros((self._n_local, 0), dtype=cdtype, device=self._device)
         res = self._result
         small = res.vectors_small[:, res.conv]
         if nvec is not None:

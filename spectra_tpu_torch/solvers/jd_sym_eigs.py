@@ -157,10 +157,21 @@ class JDSymEigsBase:
                            selection: SortRule = SortRule.LargestMagn,
                            maxit: int = 100, tol: float = 1e-10) -> int:
         """Run from ``initial_space``, an (n, k) orthonormal block (numpy or
-        a tensor), moved to the operator's device."""
-        initial_space = torch.as_tensor(initial_space).to(self._device).contiguous()
+        a tensor), moved to the operator's device. Over a row-sharded
+        operator it is the whole block (each rank keeps its rows) or the
+        rank's rows, and only the fixed-buffer route runs."""
+        initial_space = torch.as_tensor(initial_space)
+        mesh = getattr(self._op, "mesh", None)
+        if mesh is not None and initial_space.shape[0] == self._op.rows():
+            initial_space = mesh.local_rows(initial_space)
+        initial_space = initial_space.to(self._device).contiguous()
         if self._use_compiled(selection):
             return self._compute_compiled(initial_space, selection, maxit, tol)
+        if mesh is not None:
+            raise ValueError(
+                "a row-sharded operator runs the fixed-buffer JD route only "
+                "(not SPECTRA_TPU_JD_DRIVER=host, BothEnds or a host-loop subclass)"
+            )
         ss = self._search_space
         ss.initialize_search_space(initial_space)
         self._niter = 0

@@ -647,3 +647,65 @@ def test_mixed_precision_on_card(cuda):
     np.testing.assert_allclose(s.eigenvalues(), cpu.eigenvalues(), rtol=0, atol=1e-9 * scale)
     assert np.all(s.mixed_report()["resid_f64"] <= 1e-6 * scale)
     assert s.eigenvectors().device.type == "cuda"
+
+
+@pytest.fixture
+def nccl_one_rank(cuda):
+    """A one-rank NCCL row mesh (``row_mesh()`` starts the process group
+    itself), the group destroyed at teardown so no later test inherits
+    it."""
+    import torch.distributed as dist
+
+    from spectra_tpu_torch.parallel import row_mesh
+
+    assert not dist.is_initialized()
+    yield row_mesh()
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_sharded_products_one_rank_nccl(nccl_one_rank):
+    """The multi-device layer on one rank over NCCL: each sharded
+    operator's product (vector and block) equals the unsharded product
+    on the card bitwise (the same kernel, with zero halos), and the hi/lo
+    class launches K2's ``_ext`` entry once a vector."""
+    import spectra_tpu_torch as stt
+    from spectra_tpu_torch.parallel import (
+        ShardedEllMatProd,
+        ShardedStencilMatProd,
+        shard_problem,
+        sharded_stencil_op,
+    )
+    from spectra_tpu_torch.parallel.stencil_spmv import host_dia
+
+    mesh = nccl_one_rank
+    assert mesh.backend == "nccl" and mesh.size == 1 and not mesh.staged
+    g = 40
+    lap1 = sps.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(g, g))
+    eye = sps.eye(g)
+    A = (
+        sps.kron(sps.kron(lap1, eye), eye) + sps.kron(sps.kron(eye, lap1), eye)
+        + sps.kron(sps.kron(eye, eye), lap1)
+    ).tocsr()
+    n = A.shape[0]
+    x = torch.randn(n, dtype=torch.float64, device="cuda")
+    X = torch.randn((n, 5), dtype=torch.float64, device="cuda")
+    dia = pf.dia_from_scipy(A, device="cuda")
+    hilo = pf.DiaHiLoMatrix.from_dia(dia)
+    stencil = ShardedStencilMatProd.create(host_dia(A), mesh)
+    assert torch.equal(stencil.perform_op(x), dia.matvec(x))
+    assert torch.equal(stencil.perform_op(X), dia.matmat(X))
+    before = dict(dsmod.ENTRY_LAUNCHES)
+    op = sharded_stencil_op(host_dia(A), mesh, hilo=True)
+    y = op.perform_op(x)
+    torch.cuda.synchronize()
+    assert dsmod.ENTRY_LAUNCHES.get("ext", 0) == before.get("ext", 0) + 1
+    assert torch.equal(y, hilo.matvec(x))
+    assert torch.equal(op.perform_op(X), hilo.matmat(X))
+    ell = ShardedEllMatProd.create(A, mesh)
+    ref = pf.ell_from_scipy(A, device="cuda")
+    torch.testing.assert_close(ell.perform_op(x), ref.matvec(x), rtol=1e-13, atol=0)
+    # GSPMD's lowering: the gather, then K1 on the rows (d=7, n=64,000:
+    # under the hi/lo threshold, so f64 DIA)
+    row_op, xs = shard_problem(stt.SparseSymMatProd.from_full(A, device="cuda"), x, mesh)
+    assert torch.equal(row_op.perform_op(xs), dia.matvec(x))
