@@ -121,20 +121,34 @@ Phases, each printing JSON lines and its wall time:
     the 20 smallest by ``sharded_stencil_shift_solve`` (the sharded
     multigrid) and ``compute_locked`` with the north star's settings,
     K1 and K2 ``_ext`` launches asserted against the code's count;
+12b'. ``multidevice_cheb_g1000``: config #2 on the row mesh, one rank
+    over NCCL at full width (``ChebSymEigsSolver`` over
+    ``sharded_stencil_op`` of the g=1000 Laplacian: the f64 stencil class
+    on K1), held to ``main_path_cheb_g1000`` of the same run (restarts,
+    filtered operations and K1 launches equal, values within 1e-12), K1
+    bitwise on the halo-extended vector and the Rayleigh quotients'
+    10-column block, the sharded product timed beside its K1 launch;
 12c. ``multidevice_2rank``: two processes on the one card in a gloo
     world (``--md-worker``; NCCL refuses two ranks on one device), CUDA
     tensors through real halo exchanges staged through pinned host
     buffers: the sharded products on g=160 and config #3's g=1000 matrix
     against the one-rank products, a shift-invert ``compute_locked`` at
     3-D g=32, an ELL IRLM and a Davidson solve, and the share of the
-    wall spent in collectives;
+    wall spent in collectives; then the composed solvers on the row
+    mesh, each held to one rank: config #2 at g=1000 (500,000 rows a
+    rank) against 12b', the partial SVD and ``svds`` over
+    ``shard_operator`` of config #4's operator at g=100, mixed precision
+    over ``shard_problem`` of the mixed matrix at n = 250,000 and LOBPCG
+    on the g=100 Laplacian's sharded stencil, with K1 bitwise on config
+    #2's two-rank halo shapes and on the f32 twin's rows;
 13. a ``kernels`` line with each kernel's numbers;
 14. the last line, ``{"ok": true, "device": {...}}``.
 
 Each path (the probes, config #2, config #3, config #5a, config #4,
 config #5b, each frontend call, each mixed-precision solve, the north
-star, the g=160 sharded solve) sets the
-launch counters to 0 just before it and reads them just after. Any
+star, the g=160 sharded solve, config #2 on the row mesh, each
+two-rank composed solve) sets the launch counters to 0 just before it
+and reads them just after. Any
 failed check raises, so the script exits non-zero and prints no ``ok``
 line. Without a CUDA device it exits with code 2 before any phase. Only
 the port is imported, never jax or the JAX package.
@@ -667,7 +681,9 @@ def run_main_path(torch, stt, dmod):
         raise RuntimeError("the Krylov basis left the card")
     if launches == 0 or launches != expected:
         raise RuntimeError(f"K1 launched {launches} times, expected {expected}")
-    return launches, op, v0
+    main = dict(values=np.asarray(vals), restarts=e.num_iterations(),
+                operations=e.num_operations(), launches=launches, wall_s=wall)
+    return launches, op, v0, main
 
 
 def device_time_rows(prof):
@@ -2871,7 +2887,7 @@ def sharded_kernel_check(torch, dmod, dsmod, op, mesh, x):
     y = op.perform_op(x)
     bitwise = bool(torch.equal(y, ref))
     return dict(kernel=kernel, d=int(d), n=int(n_rows), n_cols=int(x_in.shape[0]),
-                columns=1 if x.ndim == 1 else int(x.shape[1]),
+                columns=1 if x.ndim == 1 else int(x.shape[1]), dtype=str(x.dtype)[6:],
                 max_abs_err=float((y - ref).abs().max()), bitwise_equal=bitwise,
                 ok=bitwise)
 
@@ -3059,6 +3075,258 @@ def run_multidevice_g160(torch, stt, dmod, dsmod, pmg, pf, rates):
                       f"(g={G_MD}, one rank, ShardedStencilHiLoMatProd)")
 
 
+def solve_config2(torch, stt, op, v0):
+    """Config #2's solver as ``run_main_path`` builds it, on ``op``:
+    returns the solver, ``nconv`` and the wall (the caller sets the
+    counters to 0 before)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e = stt.ChebSymEigsSolver(
+        op, nev=10, ncv=30, which="largest", degree=DEGREE, cut_fraction=0.005,
+    )
+    e.set_restart_chunk(3)
+    e.init(v0)
+    nconv = e.compute(maxit=60)
+    torch.cuda.synchronize()
+    return e, nconv, time.perf_counter() - t0
+
+
+def run_multidevice_cheb(torch, stt, dmod, dsmod, pf, main, rates):
+    """Config #2 on the row mesh: one rank on NCCL (the process group of
+    ``multidevice_g160``), ``ChebSymEigsSolver`` over
+    ``sharded_stencil_op`` of the g=1000 Laplacian at full width (n =
+    10^6, d = 5; working set 7 x 8 x 10^6 bytes, under 120 MiB, so the f64
+    class on K1), built and run as ``run_main_path`` runs it. Held to
+    ``main_path_cheb_g1000`` of this run: the same restarts, filtered
+    operations and K1 launches (31 + 120 per operation + 1), values
+    within 1e-12 of it and 1e-9 of the analytic list. After the counted
+    run K1 is held bitwise to its plain version on the halo-extended
+    vector and on the Rayleigh quotients' 10-column block, and the
+    sharded product (halo copy and K1) is timed beside its K1 launch, the
+    bound, the plain version, the unsharded ``DiaMatrix.matvec`` and the
+    CSR call. Returns the one-rank result and the kernel-line numbers."""
+    from spectra_tpu_torch.parallel import ShardedStencilMatProd, row_mesh, sharded_stencil_op
+    from spectra_tpu_torch.parallel.stencil_spmv import host_dia
+    from spectra_tpu_torch.util.rng import SimpleRandom
+
+    bandwidth, f64_rate, _ = rates
+    mesh = row_mesh()
+    if mesh.backend != "nccl" or mesh.size != 1 or mesh.staged:
+        raise RuntimeError(f"config #2 sharded runs {mesh.backend} on {mesh.size} ranks")
+    A = laplacian_2d(G_FULL)
+    n = A.shape[0]
+    op = sharded_stencil_op(host_dia(A), mesh)
+    if not isinstance(op, ShardedStencilMatProd):
+        raise RuntimeError(f"auto-routing chose {type(op).__name__} for config #2")
+    v0 = SimpleRandom(0).random_vec(n)
+    torch.cuda.synchronize()
+    dmod.LAUNCHES = dsmod.LAUNCHES = 0
+    dmod.ENTRY_LAUNCHES.clear()
+    mesh.reset_stats()
+    e, nconv, wall = solve_config2(torch, stt, op, v0)
+    launches, k2, entries = dmod.LAUNCHES, dsmod.LAUNCHES, dict(dmod.ENTRY_LAUNCHES)
+    stats = dict(mesh.stats)
+    vals = np.sort(e.eigenvalues())
+    ops = e.num_operations()
+    expected = 31 + ops * DEGREE + 1
+    err = float(np.abs(vals - analytic_2d(G_FULL)[-len(vals):]).max())
+    diff = (float(np.abs(vals - np.sort(main["values"])).max())
+            if len(vals) == len(main["values"]) else None)
+
+    checks = []
+    x = torch.randn(n, dtype=torch.float64, device="cuda")
+    X = torch.randn((n, 10), dtype=torch.float64, device="cuda")
+    for label, v in (("vector", x), ("block_10", X)):
+        rec = sharded_kernel_check(torch, dmod, dsmod, op, mesh, v)
+        emit(phase="kernel_vs_plain", case=f"multidevice_cheb_g1000_one_rank_{label}", **rec)
+        checks.append(rec)
+    timer = Timer(torch)
+    offs, d = op.offsets, len(op.offsets)
+    lo, hi = max(0, -min(offs)), max(0, max(offs))
+    x_ext = mesh.halo(x, lo, hi)
+    shifted = tuple(o + lo for o in offs)
+    csr = torch_csr(torch, A, np.float64)
+    dia = pf.dia_from_scipy(A)
+    k1_ext = timed_entry(
+        timer, lambda: dmod.dia_spmv(op.data, shifted, x_ext, x_ext.shape[0]),
+        lambda: dmod.dia_spmv_plain(op.data, shifted, x_ext, x_ext.shape[0]),
+        lambda: csr @ x, (d + 1) * 8 * n + 8 * (n + lo + hi), 2 * A.nnz, f64_rate,
+        bandwidth, back_to_back=True,
+    )
+    spmv = dict(sharded=timer.stats(lambda: op.perform_op(x)),
+                sharded_back_to_back_ms=timer.back_to_back(lambda: op.perform_op(x)),
+                unsharded_k1=timer.stats(lambda: dia.matvec(x)))
+    del csr, x_ext, x, X
+    # How far the counts move with rounding: the unsharded solve from v0
+    # with 8 entries moved by one ulp (three seeds). Their span holds the
+    # two-rank solve's counts (check_composed).
+    ulp_runs = []
+    for seed in (1, 2, 3):
+        v = v0.copy()
+        idx = np.random.default_rng(seed).choice(n, 8, replace=False)
+        v[idx] = np.nextafter(v[idx], np.inf)
+        ep, nc, w = solve_config2(torch, stt, stt.SparseSymMatProd(ell=dia), v)
+        ulp_runs.append(dict(nconv=nc, restarts=ep.num_iterations(),
+                             operations=ep.num_operations(), wall_s=w,
+                             max_diff_vs_main_path=float(np.abs(
+                                 np.sort(ep.eigenvalues()) - np.sort(main["values"])).max())))
+    emit(phase="multidevice_cheb_g1000", g=G_FULL, n=n, d=d, op=type(op).__name__,
+         backend=mesh.backend, ranks=mesh.size, nconv=nconv, info=e.info().name,
+         restarts=e.num_iterations(), filtered_operations=ops,
+         main_path_restarts=main["restarts"], main_path_operations=main["operations"],
+         launches=launches, main_path_launches=main["launches"], expected_spmvs=expected,
+         entry_launches=entries, k2_launches=k2, wall_s=wall, main_path_wall_s=main["wall_s"],
+         max_err_vs_analytic=err, max_diff_vs_main_path=diff, collectives=stats,
+         all_reduces_per_operation=stats["all_reduce"] / max(1, ops),
+         k1_halo_extended=k1_ext, halo=[lo, hi], one_ulp_start_runs=ulp_runs,
+         history=e.convergence_history(), **spmv)
+    if nconv != 10 or err > 1e-9 or diff is None or diff > 1e-12:
+        raise RuntimeError(f"config #2 sharded: {nconv} converged, error {err}, "
+                           f"difference from the main path {diff}")
+    if (e.num_iterations(), ops, launches) != (main["restarts"], main["operations"],
+                                              main["launches"]) or launches != expected:
+        raise RuntimeError(f"config #2 sharded: restarts {e.num_iterations()}, operations "
+                           f"{ops}, K1 {launches}; main path {main}")
+    if k2 != 0 or not all(rec["ok"] for rec in checks):
+        raise RuntimeError(f"config #2 sharded: K2 {k2} launches, kernel checks {checks}")
+    return dict(values=vals.tolist(), restarts=e.num_iterations(), operations=ops,
+                launches=launches, wall_s=wall, k1_ext=k1_ext, checks=len(checks),
+                ulp_counts=[[r["restarts"], r["operations"]] for r in ulp_runs])
+
+
+def md_composed(torch, stt, dmod, dsmod, mesh, one, rank, checks):
+    """The composed solvers of the two-rank world (``--md-worker``):
+    config #2 at g=1000 on two ranks (500,000 rows a rank; its one-rank
+    result is ``multidevice_cheb_g1000``'s), then on two ranks and on one
+    (rank 0): ``PartialSVDSolver`` and ``svds`` over ``shard_operator``
+    of config #4's operator at g=100 (the ``contrib`` phase's matrix),
+    mixed precision over ``shard_problem`` of ``mixed_matrix(250_000)``
+    and LOBPCG on the g=100 Laplacian's sharded stencil as the
+    ``contrib`` phase runs it. Each run's values, counts, K1 launches
+    (the counters set to 0 just before), wall and collectives; K1 held
+    bitwise to its plain version on config #2's halo-extended vector and
+    10-column block at two ranks and on the f32 twin's rows, after the
+    counted runs (appended to ``checks``); so also on the partial SVD's
+    DIA rows (a vector and ``matrix_U``'s 5-column block) and on
+    LOBPCG's 10-column block, on each mesh."""
+    from spectra_tpu_torch import distributed
+    from spectra_tpu_torch.parallel import (
+        ShardedStencilMatProd,
+        shard_operator,
+        shard_problem,
+        sharded_stencil_op,
+    )
+    from spectra_tpu_torch.parallel.stencil_spmv import host_dia
+    from spectra_tpu_torch.solvers.mixed import cast_op_f32
+    from spectra_tpu_torch.util.rng import SimpleRandom
+
+    meshes = [("two", mesh), ("one", one)]
+    out = dict(config2={}, partial_svd={}, mixed={}, lobpcg={})
+
+    def counted():
+        torch.cuda.synchronize()
+        dmod.LAUNCHES = 0
+        dmod.ENTRY_LAUNCHES.clear()
+        return dict(mesh.stats), time.perf_counter()
+
+    def check(case, op, m, v):
+        rec = sharded_kernel_check(torch, dmod, dsmod, op, m, v)
+        checks.append(dict(case=f"{case}_rank{rank}", **rec))
+
+    A = laplacian_2d(G_FULL)
+    n = A.shape[0]
+    op = sharded_stencil_op(host_dia(A), mesh)
+    before, _ = counted()
+    e, nconv, wall = solve_config2(torch, stt, op, SimpleRandom(0).random_vec(n))
+    ops = e.num_operations()
+    out["config2"] = dict(
+        op=type(op).__name__, nconv=nconv, info=e.info().name,
+        values=np.sort(e.eigenvalues()).tolist(), restarts=e.num_iterations(),
+        operations=ops, launches=dmod.LAUNCHES, expected_launches=31 + ops * DEGREE + 1,
+        entry_launches=dict(dmod.ENTRY_LAUNCHES), wall_s=wall,
+        collectives={k: v - before[k] for k, v in mesh.stats.items()},
+        history=e.convergence_history())
+    rows = n // mesh.size
+    check("config2_g1000_two_rank_vector", op, mesh,
+          torch.randn(rows, dtype=torch.float64, device=mesh.device))
+    check("config2_g1000_two_rank_block_10", op, mesh,
+          torch.randn((rows, 10), dtype=torch.float64, device=mesh.device))
+    del op, e
+
+    S = config4_matrix(100)
+    for label, m in meshes:
+        if m is None:
+            continue
+        op = shard_operator(stt.SparseGenMatProd.create(S, device=m.device), m)
+        _, t0 = counted()
+        p = stt.PartialSVDSolver(op, ncomp=5, ncv=20)
+        nconv = p.compute()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dmod.LAUNCHES
+        s = p.singular_values()
+        U = distributed.gather_rows(p.matrix_U(5), m).cpu().numpy()
+        V = distributed.gather_rows(p.matrix_V(5), m).cpu().numpy()
+        svds_s = stt.svds(op, k=5, ncv=20)[1][::-1]
+        out["partial_svd"][label] = dict(
+            local=type(op.local).__name__, nconv=nconv, info=p.info().name,
+            singular_values=s.tolist(), restarts=p.num_iterations(),
+            operations=p.num_operations(), launches=launches, wall_s=wall,
+            residual_inf=float(np.abs(S @ V - U * s[None, :]).max()) if len(s) == 5 else None,
+            svds_equal_class=bool(np.array_equal(svds_s, s)))
+        rows = S.shape[1] // m.size
+        check(f"partial_svd_g100_{label}_vector", op, m,
+              torch.randn(rows, dtype=torch.float64, device=m.device))
+        check(f"partial_svd_g100_{label}_block_5", op, m,
+              torch.randn((rows, 5), dtype=torch.float64, device=m.device))
+        del op, p
+
+    M = mixed_matrix(250_000)
+    v0 = SimpleRandom(0).random_vec(250_000)
+    for label, m in meshes:
+        if m is None:
+            continue
+        op_s, v0_s = shard_problem(stt.SparseSymMatProd.from_full(M, device=m.device), v0, m)
+        sol = stt.SymEigsSolver(op_s, nev=10, ncv=30)
+        sol.set_precision("mixed")
+        sol.init(v0_s)
+        _, t0 = counted()
+        nconv = sol.compute(stt.SortRule.LargestAlge, maxit=500, tol=1e-6)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rep = sol.mixed_report()
+        out["mixed"][label] = dict(
+            local=type(op_s.local).__name__, nconv=nconv, info=sol.info().name,
+            values=np.sort(sol.eigenvalues()).tolist(), twin_restarts=sol.num_iterations(),
+            twin_operations=sol.num_operations() - 3 * nconv,
+            refine_rounds=rep["refine_rounds"], entry_launches=dict(dmod.ENTRY_LAUNCHES),
+            max_resid_f64=float(np.max(rep["resid_f64"])), wall_s=wall)
+        twin = cast_op_f32(op_s)
+        check(f"mixed_f32_twin_{label}", twin, m,
+              torch.randn(250_000 // m.size, dtype=torch.float32, device=m.device))
+        del op_s, sol, twin
+
+    g = 100
+    L = laplacian_2d(g)
+    X0 = np.random.default_rng(0).normal(size=(g * g, 10))
+    for label, m in meshes:
+        if m is None:
+            continue
+        op = ShardedStencilMatProd.create(host_dia(L), m)
+        _, t0 = counted()
+        lo = stt.LOBPCGSolver(op, X0)
+        nconv = lo.compute(maxit=500, tol_div_n=1e-10)
+        torch.cuda.synchronize()
+        out["lobpcg"][label] = dict(
+            nconv=nconv, info=lo.info().name, values=np.sort(lo.eigenvalues()).tolist(),
+            iterations=lo.num_iterations(), launches=dmod.LAUNCHES,
+            max_residual=float(lo.residuals().max()), wall_s=time.perf_counter() - t0)
+        check(f"lobpcg_g100_{label}_block_10", op, m,
+              torch.randn((g * g // m.size, 10), dtype=torch.float64, device=m.device))
+        del op, lo
+    return out
+
+
 def md_worker(argv):
     """One rank of ``run_multidevice_2rank``'s two-process gloo world on
     the one card: ``--md-worker RANK PORT OUT``. Every product is held to
@@ -3193,6 +3461,9 @@ def md_worker(argv):
     res["collective_share_of_wall"] = mesh.stats["seconds"] / res["wall_s"]
     res["exchange_share_of_wall"] = mesh.stats["exchange_s"] / res["wall_s"]
     res["exchange_us"] = mesh.stats["exchange_s"] / max(1, mesh.stats["exchange"]) * 1e6
+    t0 = time.perf_counter()
+    res["composed"] = md_composed(torch, stt, dmod, dsmod, mesh, one, rank, checks)
+    res["composed_wall_s"] = time.perf_counter() - t0
     import torch.distributed as dist
 
     every = [None] * mesh.size
@@ -3206,7 +3477,109 @@ def md_worker(argv):
     return 0
 
 
-def run_multidevice_2rank(torch):
+def check_composed(comp, cheb_one):
+    """The composed solvers of the two-rank world against one rank:
+    config #2 against ``multidevice_cheb_g1000`` (values within 1e-12
+    relative and 1e-9 of the analytic list, K1 launches 31 + 120 per
+    filtered operation + 1; its restarts and filtered operations, which
+    rounding decides, must lie within the span of one rank's and of the
+    one-rank solves from one-ulp moves of the start, measured in the
+    same run, and whether they equal one rank's is reported), the
+    partial SVD (singular values within 1e-12 relative, counts equal, K1
+    launches equal to the products, ``svds`` equal to the class,
+    residual under the ``contrib`` phase's 1e-7), mixed precision
+    (values within 1e-9 max|lambda|, the mode's contract; K1 f32
+    launches equal to the twin's operations and f64 block launches to
+    two a round, on each mesh), and LOBPCG (10/10 within the ``contrib``
+    phase's 1e-6 of the analytic values on each mesh, K1 launches equal
+    to the iterations on each mesh, and the two meshes' values within
+    1e-9 max|lambda| of each other: the readings were 1.5e-10, and the
+    iteration count, which moves with the sums' order at LOBPCG's
+    residual floor, is reported beside one rank's). Returns the record
+    and the names of the failed cases."""
+
+    def rel(a, b):
+        a, b = np.asarray(a), np.asarray(b)
+        return float(np.abs(a - b).max() / np.abs(b).max()) if a.shape == b.shape else None
+
+    bad = []
+    c2 = comp["config2"]
+    rec = dict(config2=dict(
+        rel_err_vs_one_rank=rel(c2["values"], cheb_one["values"]),
+        max_err_vs_analytic=float(np.abs(np.asarray(c2["values"])
+                                         - analytic_2d(G_FULL)[-10:]).max())
+        if len(c2["values"]) == 10 else None,
+        counts_two=[c2["restarts"], c2["operations"], c2["launches"]],
+        counts_one=[cheb_one["restarts"], cheb_one["operations"], cheb_one["launches"]],
+        one_ulp_start_counts=cheb_one["ulp_counts"], history_two=c2["history"],
+        wall_two_s=c2["wall_s"], wall_one_s=cheb_one["wall_s"], op=c2["op"],
+        collectives=c2["collectives"],
+        exchange_us=c2["collectives"]["exchange_s"] / max(1, c2["collectives"]["exchange"])
+        * 1e6, all_reduces_per_operation=c2["collectives"]["all_reduce"]
+        / max(1, c2["operations"])))
+    r = rec["config2"]
+    r["counts_equal"] = r["counts_two"] == r["counts_one"]
+    span = np.array([r["counts_one"][:2]] + cheb_one["ulp_counts"])
+    r["count_span"] = [span.min(axis=0).tolist(), span.max(axis=0).tolist()]
+    inside = bool(np.all((span.min(axis=0) <= r["counts_two"][:2])
+                         & (r["counts_two"][:2] <= span.max(axis=0))))
+    if (c2["nconv"] != 10 or r["rel_err_vs_one_rank"] is None
+            or r["rel_err_vs_one_rank"] > 1e-12 or r["max_err_vs_analytic"] > 1e-9
+            or c2["launches"] != c2["expected_launches"] or not inside):
+        bad.append("config2")
+    two, one = comp["partial_svd"]["two"], comp["partial_svd"]["one"]
+    rec["partial_svd"] = dict(
+        rel_err_vs_one_rank=rel(two["singular_values"], one["singular_values"]),
+        counts_two=[two["restarts"], two["operations"], two["launches"]],
+        counts_one=[one["restarts"], one["operations"], one["launches"]],
+        residual_inf=[two["residual_inf"], one["residual_inf"]],
+        wall_s=[two["wall_s"], one["wall_s"]], local=two["local"])
+    r = rec["partial_svd"]
+    if (two["nconv"] != 5 or one["nconv"] != 5 or r["rel_err_vs_one_rank"] > 1e-12
+            or r["counts_two"] != r["counts_one"]
+            or any(x["launches"] != x["operations"] for x in (two, one))
+            or not (two["svds_equal_class"] and one["svds_equal_class"])
+            or max(r["residual_inf"]) > 1e-7):
+        bad.append("partial_svd")
+    two, one = comp["mixed"]["two"], comp["mixed"]["one"]
+    scale = float(np.abs(one["values"]).max()) if one["values"] else 1.0
+    diff = (float(np.abs(np.asarray(two["values"]) - np.asarray(one["values"])).max())
+            if len(two["values"]) == len(one["values"]) else None)
+    rec["mixed"] = dict(
+        max_diff_vs_one_rank=diff, max_abs_eigenvalue=scale,
+        counts_two=[two["twin_restarts"], two["twin_operations"], two["refine_rounds"]],
+        counts_one=[one["twin_restarts"], one["twin_operations"], one["refine_rounds"]],
+        entry_launches=[two["entry_launches"], one["entry_launches"]],
+        max_resid_f64=[two["max_resid_f64"], one["max_resid_f64"]],
+        wall_s=[two["wall_s"], one["wall_s"]], local=two["local"])
+    rec["mixed"]["counts_equal"] = rec["mixed"]["counts_two"] == rec["mixed"]["counts_one"]
+    if (two["nconv"] != 10 or one["nconv"] != 10 or diff is None or diff > 1e-9 * scale
+            or any(x["entry_launches"] != {"f32": x["twin_operations"],
+                                           "f64_block": 2 * x["refine_rounds"]}
+                   for x in (two, one))):
+        bad.append("mixed")
+    two, one = comp["lobpcg"]["two"], comp["lobpcg"]["one"]
+    lam = analytic_2d(100)[:10]
+    errs = [float(np.abs(np.asarray(x["values"]) - lam).max()) if len(x["values"]) == 10
+            else None for x in (two, one)]
+    rec["lobpcg"] = dict(
+        max_err_vs_analytic=errs,
+        max_diff_vs_one_rank=float(np.abs(np.asarray(two["values"])
+                                          - np.asarray(one["values"])).max())
+        if None not in errs else None, max_abs_eigenvalue=float(lam.max()),
+        iterations=[two["iterations"], one["iterations"]],
+        launches=[two["launches"], one["launches"]],
+        max_residual=[two["max_residual"], one["max_residual"]],
+        wall_s=[two["wall_s"], one["wall_s"]])
+    if (None in errs or max(errs) > 1e-6
+            or rec["lobpcg"]["max_diff_vs_one_rank"] > 1e-9 * float(lam.max())
+            or any(x["nconv"] != 10 or x["info"] != "Successful"
+                   or x["launches"] != x["iterations"] for x in (two, one))):
+        bad.append("lobpcg")
+    return rec, bad
+
+
+def run_multidevice_2rank(torch, cheb_one):
     """Two processes on the one card, spawned here, each a rank of a
     gloo world (``backend="gloo"`` passed explicitly: NCCL refuses two
     ranks on one device). They move CUDA tensors through real halo
@@ -3246,6 +3619,7 @@ def run_multidevice_2rank(torch):
                            + "\n".join(log[-3000:] for log in logs))
     with open(out) as f:
         res = json.load(f)
+    composed, composed_wall = res.pop("composed"), res.pop("composed_wall_s")
     checks = res.pop("kernel_checks")
     for rec in checks:
         emit(phase="kernel_vs_plain", **{k: v for k, v in rec.items() if k != "case"},
@@ -3259,7 +3633,11 @@ def run_multidevice_2rank(torch):
         raise RuntimeError("the two-rank products or solves failed their checks")
     if res["backend"] != "gloo" or res["ranks"] != 2:
         raise RuntimeError(f"the two-rank world ran {res['backend']} on {res['ranks']} ranks")
-    return res
+    rec, bad = check_composed(composed, cheb_one)
+    emit(phase="multidevice_2rank_composed", wall_s=composed_wall, **rec)
+    if bad:
+        raise RuntimeError(f"two-rank composed solvers failed their checks: {bad}")
+    return dict(res, composed=composed)
 
 
 def kernel_entry(name, launches, max_abs_err, t, shape, **extra):
@@ -3339,7 +3717,7 @@ def main(argv):
         "f32_ceiling", phase_f32_ceiling, torch, vmod, dmod, pf, A243, rates, ds_t
     )
     phase("irlm_g100", run_irlm, torch, stt, dmod)
-    launches, op, v0 = phase("config2_main_path", run_main_path, torch, stt, dmod)
+    launches, op, v0, main = phase("config2_main_path", run_main_path, torch, stt, dmod)
     phase("config2_profile", profile_start, torch, stt, op, v0)
     del op, v0
     k1_config3, k1_config3_full = phase(
@@ -3384,10 +3762,13 @@ def main(argv):
     torch.cuda.empty_cache()
     md = phase("multidevice_g160", run_multidevice_g160, torch, stt, dmod, dsmod, pmg,
                pf, rates)
-    phase("multidevice_2rank", run_multidevice_2rank, torch)
+    cheb_md = phase("multidevice_cheb_g1000", run_multidevice_cheb, torch, stt, dmod, dsmod,
+                    pf, main, rates)
+    md2 = phase("multidevice_2rank", run_multidevice_2rank, torch, cheb_md)
     emit(phase="multidevice_walls", g160_s=walls["multidevice_g160"],
-         two_rank_s=walls["multidevice_2rank"],
-         total_s=walls["multidevice_g160"] + walls["multidevice_2rank"])
+         cheb_g1000_s=walls["multidevice_cheb_g1000"], two_rank_s=walls["multidevice_2rank"],
+         total_s=walls["multidevice_g160"] + walls["multidevice_cheb_g1000"]
+         + walls["multidevice_2rank"])
     for t in k1_levels:  # launches per north-star run, from its levels
         ns = next((r for r in level_t if r["n"] == t["n"] and r["d"] == t["d"]), None)
         if ns is None:
@@ -3413,6 +3794,14 @@ def main(argv):
             launches_frontends=k1_frontends,
             launches_mixed_by_n={str(k): v for k, v in k1_mixed.items()},
             launches_north_star=k1_ns, launches_multidevice_g160=md["k1_launches"],
+            launches_multidevice_cheb_g1000=cheb_md["launches"],
+            multidevice_cheb_g1000=cheb_md["k1_ext"],
+            launches_multidevice_2rank_rank0={
+                "config2": md2["composed"]["config2"]["launches"],
+                "partial_svd": {k: v["launches"]
+                                for k, v in md2["composed"]["partial_svd"].items()},
+                "mixed": {k: v["entry_launches"] for k, v in md2["composed"]["mixed"].items()},
+                "lobpcg": {k: v["launches"] for k, v in md2["composed"]["lobpcg"].items()}},
             north_star_levels=[t for t in level_t if t["kernel"] == "dia_spmv"],
             k1_levels=k1_levels, launch_floor=k1_floor,
             mode_a_g243=ds_t["g243"]["A_k1_f64"],

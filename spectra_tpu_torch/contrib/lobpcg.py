@@ -15,12 +15,18 @@ as ``jnp.linalg.cholesky`` does, so that the retry rules are the JAX
 package's. The guard vectors of the rank-deficient
 recovery and of soft locking are drawn from ``numpy.random.RandomState``
 with the JAX package's seeds, on the host.
+
+Over a row-sharded operator A (one that carries a ``mesh``) the blocks
+hold the rank's rows: every Gram matrix, residual norm and constraint
+projection is one all-reduce, the guard vectors are drawn at the global
+shape and cut, and every rank solves the same small problems.
 """
 
 import numpy as np
 import torch
 
 from spectra_tpu_torch.linalg.ritz_pairs import eigh_host
+from spectra_tpu_torch.ops.gemv import col_norms
 from spectra_tpu_torch.util.capabilities import resolve_device
 from spectra_tpu_torch.util.compinfo import CompInfo
 
@@ -74,7 +80,10 @@ class LOBPCGSolver:
             device = A.device
         self._device = resolve_device(device)
         self._A = _as_matvec(A, self._device)
-        self._X0 = torch.as_tensor(X).to(self._device)
+        #: The row mesh of a sharded A, else None.
+        self._mesh = getattr(A, "mesh", None)
+        self._n = A.rows() if self._mesh is not None else None
+        self._X0 = self._rows(X).to(self._device)
         self._B = None
         self._T = None
         self._Y = None
@@ -95,18 +104,39 @@ class LOBPCGSolver:
     setPreconditioner = set_preconditioner
 
     def set_constraints(self, Y):
-        """Deflate against the (B-orthonormal) columns of Y."""
-        self._Y = torch.as_tensor(Y).to(self._device, self._X0.dtype)
+        """Deflate against the (B-orthonormal) columns of Y (over a sharded
+        A, the whole block or the rank's rows)."""
+        self._Y = self._rows(Y).to(self._device, self._X0.dtype)
 
     setConstraints = set_constraints
 
     # -- helpers -------------------------------------------------------
+    def _rows(self, X):
+        """``X`` as a tensor; over a mesh a whole block is cut to the
+        rank's rows."""
+        X = torch.as_tensor(X)
+        if self._mesh is not None and X.shape[0] == self._n:
+            X = self._mesh.local_rows(X)
+        return X
+
+    def _guard(self, seed: int, n: int, k: int, like):
+        """``k`` unit random guard columns from ``RandomState(seed)``,
+        drawn at the global length ``n`` and cut to the rank's rows."""
+        guard = np.random.RandomState(seed).normal(size=(n, k))
+        guard = torch.from_numpy(guard / np.linalg.norm(guard, axis=0))
+        if self._mesh is not None:
+            guard = self._mesh.local_rows(guard)
+        return guard.to(like.device, like.dtype)
+
+    def _reduce(self, t):
+        return t if self._mesh is None else self._mesh.all_reduce(t)
+
     def _apply_B(self, X):
         return X if self._B is None else self._B(X)
 
     def _host_gram(self, X, Y):
         """``X^H Y`` symmetrized, on the host."""
-        return _hermitian((X.mH @ Y).cpu())
+        return _hermitian(self._reduce(X.mH @ Y).cpu())
 
     def _b_orthonormalize(self, X, _attempt: int = 0):
         """X B-orthonormalized through the Cholesky factor of ``X^H B X``;
@@ -117,26 +147,26 @@ class LOBPCGSolver:
         L = _cholesky(G).to(X.device, X.dtype)
         # X L^{-H}, one triangular solve
         Xo = torch.linalg.solve_triangular(L, X.mH, upper=False).mH
-        ok = bool(torch.isfinite(Xo).all())
+        bad = ~torch.isfinite(Xo).all()
+        ok = not bool(bad if self._mesh is None
+                      else self._mesh.all_reduce(bad.to(torch.float64), "max"))
         if ok or _attempt >= 1:
             return Xo, ok
         s, U = eigh_host(G)
-        n = X.shape[0]
+        n = X.shape[0] if self._mesh is None else self._n
         thresh = abs(float(s[-1])) * 1e-12
         k_bad = int((~(s > thresh)).sum())
         if k_bad == 0 or k_bad >= X.shape[1]:
             return Xo, False
         Xr = X @ U.to(X.device, X.dtype)
-        guard = np.random.RandomState(1234 + _attempt).normal(size=(n, k_bad))
-        guard = guard / np.linalg.norm(guard, axis=0)
-        Xr[:, :k_bad] = torch.from_numpy(guard).to(X.device, X.dtype)
+        Xr[:, :k_bad] = self._guard(1234 + _attempt, n, k_bad, Xr)
         return self._b_orthonormalize(Xr, _attempt + 1)
 
     def _deflate(self, R):
         if self._Y is None:
             return R
         Y = self._Y
-        return R - Y @ (self._apply_B(Y).mH @ R)
+        return R - Y @ self._reduce(self._apply_B(Y).mH @ R)
 
     def _rayleigh_ritz_x(self, X, AX):
         """Rotate X and AX into the Ritz basis of span(X)."""
@@ -156,6 +186,8 @@ class LOBPCGSolver:
         ceil(m/2), m} and filled with random guard directions; converged
         vectors stay in the Rayleigh-Ritz basis."""
         n, m = self._X0.shape
+        if self._mesh is not None:
+            n = self._n
         tol = tol_div_n * n
         dev = self._device
 
@@ -171,7 +203,7 @@ class LOBPCGSolver:
             self._niter = it + 1
             theta_d = theta.to(dev, X.dtype)
             R = AX - self._apply_B(X) * theta_d[None, :]
-            resid = torch.linalg.vector_norm(R, dim=0).cpu()
+            resid = col_norms(R, self._mesh).cpu()
             nconv = int((resid < tol).sum())
             if nconv >= m:
                 self._info = CompInfo.Successful
@@ -185,9 +217,7 @@ class LOBPCGSolver:
                 order = np.argsort((resid < tol).numpy(), kind="stable")
                 R_act = R[:, torch.from_numpy(order[:width]).to(dev)]
                 if width > n_act:
-                    guard = np.random.RandomState(it).normal(size=(n, width - n_act))
-                    guard = guard / np.linalg.norm(guard, axis=0)
-                    R_act[:, n_act:] = torch.from_numpy(guard).to(dev, R.dtype)
+                    R_act[:, n_act:] = self._guard(it, n, width - n_act, R)
             W = R_act if self._T is None else self._T(R_act)
             W, ok = self._b_orthonormalize(self._deflate(W))
             if not ok:
@@ -226,7 +256,7 @@ class LOBPCGSolver:
             Cp = Cd.clone()
             Cp[:m, :] = 0.0
             P, AP = S @ Cp, AS @ Cp
-            p_norms = torch.linalg.vector_norm(P, dim=0)
+            p_norms = col_norms(P, self._mesh)
             p_norms = torch.where(p_norms > 0, p_norms, torch.ones_like(p_norms))
             P, AP = P / p_norms, AP / p_norms
             X, AX = X_new, AX_new
@@ -238,8 +268,8 @@ class LOBPCGSolver:
         self._vals = theta[:m].numpy()
         self._vecs = X
         theta_d = theta[:m].to(dev, X.dtype)
-        self._resid = torch.linalg.vector_norm(
-            AX - self._apply_B(X) * theta_d[None, :], dim=0
+        self._resid = col_norms(
+            AX - self._apply_B(X) * theta_d[None, :], self._mesh
         ).cpu().numpy()
         return nconv
 
@@ -254,7 +284,8 @@ class LOBPCGSolver:
         return self._vals
 
     def eigenvectors(self) -> torch.Tensor:
-        """The (n, nev) block of eigenvectors, on the solver's device."""
+        """The (n, nev) block of eigenvectors, on the solver's device (over
+        a sharded A, the rank's rows)."""
         return self._vecs
 
     def residuals(self) -> np.ndarray:

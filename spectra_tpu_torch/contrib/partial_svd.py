@@ -8,6 +8,12 @@ the other side's singular vectors come from one product scaled by the
 singular values (:173-202). Each Gram product is two products on the
 operator's device: for a banded sparse matrix, K1 forward and the plain
 ``DiaMatrix.rmatvec`` adjoint.
+
+Over a row-sharded operator (``parallel.shard_operator`` of a
+rectangular matrix) the Gram operator carries its mesh: the IRLM's
+vectors are the rank's share of the Gram side, the adjoint product sums
+its partials over the ranks, and ``matrix_U`` and ``matrix_V`` return
+the rank's rows.
 """
 
 import dataclasses
@@ -35,6 +41,11 @@ class _GramOp:
     @property
     def device(self):
         return self.matop.device
+
+    @property
+    def mesh(self):
+        """The row mesh of a sharded ``matop``, else None."""
+        return getattr(self.matop, "mesh", None)
 
     def rows(self) -> int:
         return self.matop.rows() if self.wide else self.matop.cols()
@@ -104,14 +115,16 @@ class PartialSVDSolver:
         return applied / s.to(applied.dtype)[None, :]
 
     def matrix_U(self, nu: int) -> torch.Tensor:
-        """Left singular vectors (m, nu), on the operator's device."""
+        """Left singular vectors (m, nu), on the operator's device (over a
+        sharded operator, the rank's rows)."""
         nu = min(nu, self._ncomp)
         if self._wide:
             return self._eigs.eigenvectors(nu)
         return self._cross(nu)[:, :nu]
 
     def matrix_V(self, nv: int) -> torch.Tensor:
-        """Right singular vectors (n, nv), on the operator's device."""
+        """Right singular vectors (n, nv), on the operator's device (over
+        a sharded operator, the rank's rows)."""
         nv = min(nv, self._ncomp)
         if self._wide:
             return self._cross(nv)[:, :nv]

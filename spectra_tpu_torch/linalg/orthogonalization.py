@@ -50,23 +50,27 @@ def modified_gram_schmidt_orthogonalisation(A):
     return Q
 
 
-def subspace_orthogonalisation(A, n_locked: int):
+def subspace_orthogonalisation(A, n_locked: int, mesh=None):
     """The trailing columns of A projected against its first
-    ``n_locked`` (orthonormal) columns: ``A_new - Q Q^H A_new``."""
+    ``n_locked`` (orthonormal) columns: ``A_new - Q Q^H A_new`` (on a
+    row ``mesh``, ``Q^H A_new`` summed over the ranks)."""
     Q, rest = A[:, :n_locked], A[:, n_locked:]
-    return torch.cat([Q, rest - Q @ (Q.mH @ rest)], dim=1)
+    coef = Q.mH @ rest
+    if mesh is not None:
+        coef = mesh.all_reduce(coef)
+    return torch.cat([Q, rest - Q @ coef], dim=1)
 
 
-def jens_wehner_orthogonalisation(A, n_locked: int):
+def jens_wehner_orthogonalisation(A, n_locked: int, mesh=None):
     """The subspace projection of the new columns, then their QR
     (reference: Orthogonalization.h:133-137)."""
-    A = subspace_orthogonalisation(A, n_locked)
-    return torch.cat([A[:, :n_locked], qr_orthogonalisation(A[:, n_locked:])], dim=1)
+    A = subspace_orthogonalisation(A, n_locked, mesh)
+    return torch.cat([A[:, :n_locked], qr_orthogonalisation(A[:, n_locked:], mesh)], dim=1)
 
 
-def twice_is_enough(A, n_locked: int):
+def twice_is_enough(A, n_locked: int, mesh=None):
     """:func:`jens_wehner_orthogonalisation` twice, Kahan's rule
     (reference: Orthogonalization.h, used by SearchSpace.h:84)."""
     return jens_wehner_orthogonalisation(
-        jens_wehner_orthogonalisation(A, n_locked), n_locked
+        jens_wehner_orthogonalisation(A, n_locked, mesh), n_locked, mesh
     )

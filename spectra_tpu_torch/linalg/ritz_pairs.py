@@ -17,6 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from spectra_tpu_torch.ops.gemv import col_norms
 from spectra_tpu_torch.util.selection import SortRule, argsort
 
 
@@ -41,9 +42,12 @@ def eigh_host(M):
     return torch.from_numpy(w), torch.from_numpy(s)
 
 
-def compute_eigen_pairs(V, W) -> RitzPairs:
-    """Rayleigh-Ritz on span(V) with ``W = A V`` precomputed."""
-    H = (V.mH @ W).cpu()
+def compute_eigen_pairs(V, W, mesh=None) -> RitzPairs:
+    """Rayleigh-Ritz on span(V) with ``W = A V`` precomputed; for V and W
+    holding a rank's rows of a row ``mesh``, ``V^H W`` summed over the
+    ranks."""
+    H = V.mH @ W
+    H = (H if mesh is None else mesh.all_reduce(H)).cpu()
     values, small = eigh_host(0.5 * (H + H.mH))
     small = small.to(V.device, V.dtype)
     vectors = V @ small
@@ -63,9 +67,10 @@ def sort(pairs: RitzPairs, selection: SortRule) -> RitzPairs:
     )
 
 
-def convergence(pairs: RitzPairs, tol, nev: int):
-    """Per-pair flags by residual column norm, and whether all of the
-    first ``nev`` converged (RitzPairs.h:73-87)."""
-    norms = torch.linalg.vector_norm(pairs.residues[:, :nev], dim=0).cpu()
+def convergence(pairs: RitzPairs, tol, nev: int, mesh=None):
+    """Per-pair flags by residual column norm (over a row ``mesh``, the
+    norm of the whole column), and whether all of the first ``nev``
+    converged (RitzPairs.h:73-87)."""
+    norms = col_norms(pairs.residues[:, :nev], mesh).cpu()
     flags = norms < tol
     return flags, bool(flags.all())

@@ -5,7 +5,9 @@ include/Spectra/LinAlg/SearchSpace.h:20-92): the orthonormal basis V
 and ``W = A V`` on the operator's device. The operator touches only
 the columns added since the last product (SearchSpace.h:57-63); a
 restart collapses to the leading Ritz vectors (:70-74); an extension
-appends correction vectors orthogonalized twice (:80-85).
+appends correction vectors orthogonalized twice (:80-85). Over a
+row-sharded operator V and W hold the rank's rows and the extension's
+projections and QR run through ``mesh``.
 """
 
 import torch
@@ -17,7 +19,8 @@ from spectra_tpu_torch.linalg.orthogonalization import twice_is_enough
 class SearchSpace:
     """The JD basis V (n, m) and product W, held between iterations."""
 
-    def __init__(self):
+    def __init__(self, mesh=None):
+        self.mesh = mesh
         self.V = None  # (n, m) orthonormal basis
         self.W = None  # (n, m_op): the operator on the first m_op columns
         self.nops = 0  # operator column applications
@@ -48,4 +51,6 @@ class SearchSpace:
     def extend_basis(self, corrections):
         """Append the correction vectors, orthogonalized."""
         n_locked = self.size
-        self.V = twice_is_enough(torch.cat([self.V, corrections], dim=1), n_locked)
+        self.V = twice_is_enough(
+            torch.cat([self.V, corrections], dim=1), n_locked, self.mesh
+        )

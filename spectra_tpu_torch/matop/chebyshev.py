@@ -10,6 +10,11 @@ eigenvalues separate exponentially. Eigenvectors are unchanged; the
 true eigenvalues come back as Rayleigh quotients with the original
 operator. One ``perform_op`` costs ``degree`` SpMVs of the underlying
 operator: a host loop of three-term recurrences over device vectors.
+
+Over a row-sharded operator (one that carries a ``mesh``) the filter
+carries the same mesh: vectors are the rank's rows, the recurrence is
+local, and the Rayleigh quotients and the Lanczos run of the spectrum
+bounds sum over the ranks, so every rank gets the same numbers.
 """
 
 import dataclasses
@@ -45,6 +50,11 @@ class ChebyshevFilteredOp:
     def device(self):
         return self.op.device
 
+    @property
+    def mesh(self):
+        """The row mesh of a sharded ``op``, else None."""
+        return getattr(self.op, "mesh", None)
+
     def rows(self) -> int:
         return self.op.rows()
 
@@ -66,10 +76,14 @@ class ChebyshevFilteredOp:
 
     def rayleigh_quotients(self, vecs):
         """True eigenvalues of the ORIGINAL operator for (approximately
-        invariant) columns of ``vecs``: lambda_i = v_i^H A v_i / v_i^H v_i."""
+        invariant) columns of ``vecs``: lambda_i = v_i^H A v_i / v_i^H v_i.
+        On a mesh the numerators and denominators are summed over the
+        ranks as one (2, k) all-reduce."""
         Av = self.op.perform_op(vecs)
         num = torch.sum(vecs.conj() * Av, dim=0)
         den = torch.sum(vecs.conj() * vecs, dim=0)
+        if self.mesh is not None:
+            num, den = self.mesh.all_reduce(torch.stack([num, den]))
         return torch.real(num / den)
 
 
@@ -79,6 +93,8 @@ def estimate_spectrum_bounds(op, steps: int = 30, safety: float = 0.05):
     Runs ``steps`` Lanczos iterations from the deterministic starting
     vector and returns ``(lo, hi)``: the extreme Ritz values pushed
     outward by ``safety * span`` plus their Kaniel-Paige residual bound.
+    Over a row-sharded operator the whole starting vector is cut to the
+    rank's rows and the Lanczos run reduces over the mesh.
     """
     from spectra_tpu_torch.linalg import krylov
     from spectra_tpu_torch.matop.arnoldi_op import ArnoldiOp
@@ -87,8 +103,10 @@ def estimate_spectrum_bounds(op, steps: int = 30, safety: float = 0.05):
     n = op.rows()
     m = min(steps, n)
     arnop = ArnoldiOp.create(op)
-    v0 = SimpleRandom(0).random_vec(n, numpy_dtype(op.dtype))
-    state = krylov.init(arnop, torch.from_numpy(v0).to(op.device), m)
+    v0 = torch.from_numpy(SimpleRandom(0).random_vec(n, numpy_dtype(op.dtype)))
+    if arnop.mesh is not None:
+        v0 = arnop.mesh.local_rows(v0)
+    state = krylov.init(arnop, v0.to(op.device), m)
     state = krylov.factorize_from(arnop, state, 1, "lanczos")
     H = state.H.numpy()
     theta, Y = np.linalg.eigh(0.5 * (H + H.T))

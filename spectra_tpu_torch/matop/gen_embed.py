@@ -77,6 +77,13 @@ class RealEmbeddedGenMatProd:
     def device(self):
         return self.inner.device
 
+    @property
+    def mesh(self):
+        """The row mesh of a row-sharded ``inner`` (over the 2n rows), else
+        None: the solver then reduces over it and gathers its Ritz
+        vectors before :meth:`map_ritz_pairs`."""
+        return getattr(self.inner, "mesh", None)
+
     def rows(self) -> int:
         return 2 * self.n_orig
 
@@ -135,6 +142,10 @@ class RotatedEmbeddedGenMatProd:
         return self.embed.device
 
     @property
+    def mesh(self):
+        return self.embed.mesh
+
+    @property
     def n_orig(self) -> int:
         return self.embed.n_orig
 
@@ -145,10 +156,13 @@ class RotatedEmbeddedGenMatProd:
         return self.embed.cols()
 
     def perform_op(self, v):
-        w = self.embed.perform_op(v)
+        from spectra_tpu_torch.matop.internal_ops import whole_rows
+
         n = self.embed.n_orig
-        # -J w = (w_bottom, -w_top)
-        return torch.cat([w[..., n:], -w[..., :n]], dim=-1)
+        # -J w = (w_bottom, -w_top); on a row mesh the halves are on other
+        # ranks, so the swap runs on the gathered w
+        return whole_rows(lambda w: torch.cat([w[..., n:], -w[..., :n]], dim=-1),
+                          self.embed.perform_op(v), self.mesh)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

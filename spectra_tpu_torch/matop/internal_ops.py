@@ -7,6 +7,13 @@ SymGEigsBucklingOp.h:29-95, SymGEigsCayleyOp.h:28-105). Each is a
 composition of its sub-operators on their device; they are
 dataclasses, so the drivers' inner-tolerance coupling reaches an
 iterative shift-solve inside them.
+
+Each carries the row mesh of a sharded sub-operator (``mesh``), so that
+the solver's inner products sum over its ranks. The Cholesky and
+RegularInverse modes hold B's factor or B itself whole (replicated on
+every rank): over a row-sharded A their solves run on the all-gathered
+vector and each rank keeps its rows (:func:`whole_rows`), what GSPMD
+does with a replicated operand of a row-sharded one.
 """
 
 import dataclasses
@@ -34,6 +41,51 @@ class _Composed:
     def cols(self) -> int:
         return getattr(self, self._inner).cols()
 
+    @property
+    def mesh(self):
+        """The row mesh of a sharded sub-operator, else None."""
+        for field in dataclasses.fields(self):
+            mesh = getattr(getattr(self, field.name), "mesh", None)
+            if mesh is not None:
+                return mesh
+        return None
+
+
+def whole_rows(fn, x, mesh):
+    """``fn`` (of a whole vector or block) on ``x``; for x holding a
+    rank's rows of a row ``mesh``, on the all-gathered x, replicated on
+    every rank, each keeping its rows."""
+    if mesh is None:
+        return fn(x)
+    return mesh.local_rows(fn(mesh.all_gather(x))).contiguous()
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class RowsOfWhole:
+    """A whole (replicated) operator, B of the RegularInverse mode,
+    applied to a rank's rows of ``mesh`` through :func:`whole_rows`: the
+    metric of a row-sharded problem."""
+
+    op: object
+    mesh: object
+
+    @property
+    def dtype(self):
+        return self.op.dtype
+
+    @property
+    def device(self):
+        return self.op.device
+
+    def rows(self) -> int:
+        return self.op.rows()
+
+    def cols(self) -> int:
+        return self.op.cols()
+
+    def perform_op(self, x):
+        return whole_rows(self.op.perform_op, x, self.mesh)
+
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class SymGEigsCholeskyOp(_Composed):
@@ -44,9 +96,10 @@ class SymGEigsCholeskyOp(_Composed):
     chol: object  # Cholesky of B
 
     def perform_op(self, x):
-        w = self.chol.upper_triangular_solve(x)
+        mesh = self.mesh
+        w = whole_rows(self.chol.upper_triangular_solve, x, mesh)
         z = self.op.perform_op(w)
-        return self.chol.lower_triangular_solve(z)
+        return whole_rows(self.chol.lower_triangular_solve, z, mesh)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -58,7 +111,7 @@ class SymGEigsRegInvOp(_Composed):
     binv: object  # SparseRegularInverse of B
 
     def perform_op(self, x):
-        return self.binv.solve(self.op.perform_op(x))
+        return whole_rows(self.binv.solve, self.op.perform_op(x), self.mesh)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

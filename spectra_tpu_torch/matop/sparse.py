@@ -18,6 +18,7 @@ when there is none.
 import dataclasses
 
 import numpy as np
+import torch
 
 from spectra_tpu_torch.sparse.formats import (
     DiaHiLoMatrix,
@@ -113,14 +114,21 @@ class SparseGenMatProd(_EllProdBase):
         return cls(ell=_to_ell(mat, dtype, format, device))
 
     def perform_trans_op(self, x):
-        """y = A^T x (the partial SVD's Gram operators), a vector."""
+        """y = A^T x (the partial SVD's Gram operators), a vector or a
+        block."""
         if self.dtype.is_complex:
-            return self.ell.rmatvec(x.conj()).conj_physical()
-        return self.ell.rmatvec(x)
+            return self.perform_adjoint_op(x.conj()).conj_physical()
+        return self.perform_adjoint_op(x)
 
     def perform_adjoint_op(self, x):
-        """y = A^H x, a vector. On DIA this is the plain shifted-slice
-        sum of ``DiaMatrix.rmatvec``, as in the JAX package."""
+        """y = A^H x, a vector or a block (one column at a time: the
+        wide partial SVD's ``matrix_V``). On DIA this is the plain
+        shifted-slice sum of ``DiaMatrix.rmatvec``, as in the JAX
+        package."""
+        if x.ndim == 2:
+            return torch.stack(
+                [self.ell.rmatvec(x[:, c]) for c in range(x.shape[1])], dim=1
+            )
         return self.ell.rmatvec(x)
 
 

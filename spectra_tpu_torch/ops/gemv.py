@@ -27,6 +27,15 @@ def vec_norm(x, mesh=None):
     return torch.sqrt(mesh.all_reduce(torch.vdot(x, x).real))
 
 
+def col_norms(X, mesh=None):
+    """The column 2-norms of an (n, k) block X as a (k,) tensor; for X
+    row-sharded over ``mesh``, the roots of the all-reduced column sums
+    of squares."""
+    if mesh is None:
+        return torch.linalg.vector_norm(X, dim=0)
+    return torch.sqrt(mesh.all_reduce((X.conj() * X).real.sum(dim=0)))
+
+
 def basis_proj(X, y):
     """``conj(X) y`` for a row-major basis block X (m, n) and y (n,):
     the projection coefficients ``<x_i, y>`` as an (m,) vector."""

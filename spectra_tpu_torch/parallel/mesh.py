@@ -20,6 +20,8 @@ communication is explicit:
   holds the rank's rows and does what GSPMD's lowering does, one
   all-gather of x (O(n) bytes a rank) and the local rows' product. On
   DIA that product is K1 on the (d, rows_per) block with ``n_cols = n``.
+  A rectangular operator keeps its shape (the partial SVD's input):
+  its adjoint product sums the local rows' partials by one all-reduce.
 
 Rows split evenly: ``n`` must divide over the mesh. Vectors keep the
 rank's rows; the small replicated problem is identical on every rank
@@ -40,6 +42,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from spectra_tpu_torch.ops.dia_ds import combine_f64
 from spectra_tpu_torch.sparse.formats import DiaHiLoMatrix, DiaMatrix, EllMatrix
 
 
@@ -325,6 +328,16 @@ class _HiLoRows:
     def dtype(self):
         return torch.float64
 
+    def to_dia(self, n_cols: int, dtype=torch.float64) -> DiaMatrix:
+        """The rows as a :class:`DiaMatrix` of the planes' sum in
+        ``dtype`` (offsets shifted by ``first``, over ``n_cols``
+        columns): a full copy of the rows' diagonals."""
+        return DiaMatrix(
+            data=combine_f64(self.data_hi, self.data_lo).to(dtype),
+            offsets=tuple(o + self.first for o in self.offsets),
+            n_rows=self.rows, n_cols=n_cols,
+        )
+
     def product(self, full):
         from spectra_tpu_torch.parallel.stencil_spmv import hilo_ext_product
 
@@ -337,16 +350,23 @@ class _HiLoRows:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class RowShardedMatProd:
-    """The rank's rows of an operator, multiplied as GSPMD lowers a
-    row-sharded product: one all-gather of x, then the local rows.
-    ``local`` is a :class:`DiaMatrix` of the rows with the offsets
-    shifted by the first row (K1, ``n_cols = n``), an
-    :class:`EllMatrix` of the rows, a ``_HiLoRows`` (K2's ``_ext``
-    entry) or a dense tensor of the rows."""
+    """The rank's rows of an ``n_rows`` x ``n_cols`` operator, multiplied
+    as GSPMD lowers a row-sharded product: one all-gather of x (the
+    rank's share of ``n_cols``), then the local rows. ``local`` is a
+    :class:`DiaMatrix` of the rows with the offsets shifted by the first
+    row (K1 over the gathered x), an :class:`EllMatrix` of the rows, a
+    ``_HiLoRows`` (K2's ``_ext`` entry; square only) or a dense tensor
+    of the rows.
+
+    ``perform_trans_op`` and ``perform_adjoint_op`` take the rank's
+    share of ``n_rows``: the local rows' transpose (adjoint) times it is
+    a partial product of length ``n_cols``, summed over the ranks by one
+    all-reduce, of which the rank keeps its share."""
 
     local: object
-    diag: torch.Tensor  # the rank's rows of the diagonal
-    n: int
+    diag: torch.Tensor  # the rank's rows of A[i, i] (zero where i >= n_cols)
+    n_rows: int
+    n_cols: int
     mesh: RowMesh
 
     @property
@@ -358,10 +378,10 @@ class RowShardedMatProd:
         return self.mesh.device
 
     def rows(self) -> int:
-        return self.n
+        return self.n_rows
 
     def cols(self) -> int:
-        return self.n
+        return self.n_cols
 
     def perform_op(self, x):
         full = self.mesh.all_gather(x)
@@ -374,25 +394,53 @@ class RowShardedMatProd:
 
     matvec = perform_op
 
+    def perform_adjoint_op(self, y):
+        """``A^H y``: the rank's share of ``n_cols``, from the local rows'
+        adjoint times ``y`` (a vector or a block), a partial product of
+        ``n_cols`` rows summed over the ranks."""
+        from spectra_tpu_torch.matop.sparse import SparseGenMatProd
+
+        local = self.local
+        if torch.is_tensor(local):
+            part = local.mH @ y
+        else:
+            if isinstance(local, _HiLoRows):
+                local = local.to_dia(self.n_cols)
+            part = SparseGenMatProd(ell=local).perform_adjoint_op(y)
+        return self.mesh.local_rows(self.mesh.all_reduce(part))
+
+    def perform_trans_op(self, y):
+        """``A^T y``: the rank's share of ``n_cols``."""
+        if self.dtype.is_complex:
+            return self.perform_adjoint_op(y.conj()).conj_physical()
+        return self.perform_adjoint_op(y)
+
     def diagonal(self):
         return self.diag
 
 
 def shard_operator(op, mesh: RowMesh):
     """The rank's rows of an operator (a sparse or dense product
-    operator, or a bare DIA, hi/lo or ELL matrix) as a
-    :class:`RowShardedMatProd`; any other operator is returned as it
-    is, as the JAX package leaves a leaf it cannot place."""
+    operator, square or rectangular, or a bare DIA, hi/lo or ELL matrix)
+    as a :class:`RowShardedMatProd`; any other operator is returned as it
+    is, as the JAX package leaves a leaf it cannot place. Both ``n_rows``
+    and ``n_cols`` must divide over the mesh."""
     store = op if isinstance(op, (EllMatrix, DiaMatrix, DiaHiLoMatrix)) else getattr(op, "ell", None)
     if store is None:
         mat = getattr(op, "mat", None)
         if mat is None or mat.shape[0] != op.rows():
             return op
+        m, n = mat.shape
+        mesh.rows_per(n)
+        diag = torch.as_tensor(mat.diagonal())
+        if m > n:
+            diag = torch.cat([diag, diag.new_zeros(m - n)])
         return RowShardedMatProd(
-            local=global_put(mat, mesh), diag=global_put(mat.diagonal(), mesh),
-            n=mat.shape[0], mesh=mesh,
+            local=global_put(mat, mesh), diag=global_put(diag, mesh),
+            n_rows=m, n_cols=n, mesh=mesh,
         )
     n = store.n_rows
+    mesh.rows_per(store.n_cols)
     first, end = mesh.row_range(n)
     cols = Placement(mesh, 1)
     if isinstance(store, DiaMatrix):
@@ -413,7 +461,8 @@ def shard_operator(op, mesh: RowMesh):
             n_rows=end - first, n_cols=store.n_cols,
         )
     return RowShardedMatProd(
-        local=local, diag=global_put(store.diagonal(), mesh), n=n, mesh=mesh
+        local=local, diag=global_put(store.diagonal(), mesh), n_rows=n,
+        n_cols=store.n_cols, mesh=mesh,
     )
 
 

@@ -47,6 +47,7 @@ import torch
 
 from spectra_tpu_torch.linalg.orthogonalization import qr_orthogonalisation
 from spectra_tpu_torch.linalg.ritz_pairs import eigh_host
+from spectra_tpu_torch.ops.gemv import col_norms
 from spectra_tpu_torch.util.selection import SortRule, sort_target
 
 
@@ -150,10 +151,7 @@ def jd_compute(op, V0, aux, maxit: int, tol: float, *, max_space: int,
         lead = small[:size, :nev].to(dev, dtype)
         ritz = Vs @ lead
         resid = Ws @ lead - ritz * vals_d[None, :nev]
-        if mesh is None:
-            norms = torch.linalg.vector_norm(resid, dim=0).cpu()
-        else:
-            norms = torch.sqrt(mesh.all_reduce((resid * resid).sum(dim=0))).cpu()
+        norms = col_norms(resid, mesh).cpu()
         conv = norms < tol
         finite = bool(torch.isfinite(vals[:size]).all())
         it += 1

@@ -110,6 +110,8 @@ class EmbeddedGenEigsSolver(GenEigsSolver):
             super().compute(selection, maxit, tol, sorting)
             vals = super().eigenvalues()
             vecs = super().eigenvectors()
+        if self._mesh is not None:
+            vecs = self._mesh.all_gather(vecs)
         cvals, cvecs = self._embed.map_ritz_pairs(vals, vecs.cpu().numpy())
         if len(cvals):
             order = argsort_np(sorting, cvals)
@@ -122,7 +124,10 @@ class EmbeddedGenEigsSolver(GenEigsSolver):
         return self._cvals
 
     def eigenvectors(self, nvec: int | None = None) -> torch.Tensor:
+        """The complex eigenvectors (n, nvec) of C on the operator's
+        device; over a row-sharded embedding, the rank's rows of n."""
         nvec = len(self._cvals) if nvec is None else min(nvec, len(self._cvals))
-        return torch.from_numpy(np.ascontiguousarray(self._cvecs[:, :nvec])).to(
-            self._device
-        )
+        vecs = torch.from_numpy(np.ascontiguousarray(self._cvecs[:, :nvec]))
+        if self._mesh is not None:
+            vecs = self._mesh.local_rows(vecs)
+        return vecs.to(self._device)

@@ -62,7 +62,7 @@ class JDSymEigsBase:
         self._info = CompInfo.NotComputed
         self._niter = 0
         self._nops = 0
-        self._search_space = SearchSpace()
+        self._search_space = SearchSpace(getattr(op, "mesh", None))
         self._ritz_pairs = None
 
     # -- knobs (reference: JDSymEigsBase.h:93-111) ----------------------
@@ -159,7 +159,7 @@ class JDSymEigsBase:
         """Run from ``initial_space``, an (n, k) orthonormal block (numpy or
         a tensor), moved to the operator's device. Over a row-sharded
         operator it is the whole block (each rank keeps its rows) or the
-        rank's rows, and only the fixed-buffer route runs."""
+        rank's rows; either route then reduces over the mesh."""
         initial_space = torch.as_tensor(initial_space)
         mesh = getattr(self._op, "mesh", None)
         if mesh is not None and initial_space.shape[0] == self._op.rows():
@@ -167,11 +167,6 @@ class JDSymEigsBase:
         initial_space = initial_space.to(self._device).contiguous()
         if self._use_compiled(selection):
             return self._compute_compiled(initial_space, selection, maxit, tol)
-        if mesh is not None:
-            raise ValueError(
-                "a row-sharded operator runs the fixed-buffer JD route only "
-                "(not SPECTRA_TPU_JD_DRIVER=host, BothEnds or a host-loop subclass)"
-            )
         ss = self._search_space
         ss.initialize_search_space(initial_space)
         self._niter = 0
@@ -182,13 +177,13 @@ class JDSymEigsBase:
                 ss.restart(self._ritz_pairs, self._initial_search_space_size)
             ss.update_operator_basis_product(self._op)
             self._nops = ss.nops
-            pairs = rp.compute_eigen_pairs(ss.V, ss.W)
+            pairs = rp.compute_eigen_pairs(ss.V, ss.W, mesh)
             if not bool(torch.isfinite(pairs.values).all()):
                 self._info = CompInfo.NumericalIssue
                 break
             pairs = rp.sort(pairs, selection)
             self._ritz_pairs = pairs
-            conv_flags, converged = rp.convergence(pairs, tol, self._nev)
+            conv_flags, converged = rp.convergence(pairs, tol, self._nev, mesh)
             if converged:
                 self._info = CompInfo.Successful
                 break

@@ -34,19 +34,45 @@ import dataclasses
 import numpy as np
 import torch
 
+from spectra_tpu_torch.ops.gemv import col_norms
+
 #: minimum accepted tol in mixed mode (see module docstring).
 MIXED_TOL_FLOOR = 1e-6
 
 
+def _cast_rows_f32(op):
+    """The f32 twin of a :class:`~spectra_tpu_torch.parallel.mesh.
+    RowShardedMatProd`: its local DIA, ELL, hi/lo (as f32 DIA of the
+    planes' sum) or dense rows in f32, on the same mesh."""
+    from spectra_tpu_torch.parallel.mesh import _HiLoRows
+    from spectra_tpu_torch.sparse.formats import DiaMatrix
+
+    local = op.local
+    if torch.is_tensor(local):
+        local = local.to(torch.float32)
+    elif isinstance(local, _HiLoRows):
+        local = local.to_dia(op.n_cols, torch.float32)
+    elif isinstance(local, DiaMatrix):
+        local = dataclasses.replace(local, data=local.data.to(torch.float32))
+    else:
+        local = dataclasses.replace(local, vals=local.vals.to(torch.float32))
+    return dataclasses.replace(op, local=local, diag=op.diag.to(torch.float32))
+
+
 def cast_op_f32(op):
-    """An f32 twin of a MatProd operator, or None if unsupported."""
+    """An f32 twin of a MatProd operator (or of its rows on a mesh), or
+    None if unsupported (a halo-exchange stencil operator, as the JAX
+    package has no twin for it either)."""
     from spectra_tpu_torch.matop.dense import DenseSymMatProd
+    from spectra_tpu_torch.parallel.mesh import RowShardedMatProd
     from spectra_tpu_torch.sparse.formats import (
         DiaHiLoMatrix,
         DiaMatrix,
         EllMatrix,
     )
 
+    if isinstance(op, RowShardedMatProd):
+        return _cast_rows_f32(op)
     ell = getattr(op, "ell", None)
     if ell is not None:
         if isinstance(ell, DiaHiLoMatrix):
@@ -86,23 +112,30 @@ def _refine_rounds(op, U, selection, sorting, max_rounds=3, rtol_stop=5e-13):
     the (n, k) block, projects in f64 and keeps the k pairs ranked by
     ``selection``. Stops when the measured f64 residuals reach
     ``rtol_stop * max|theta|`` or stop improving. ``U`` is an (n, k)
-    f64 tensor on the operator's device; returns ``(theta, V, resid)``
+    f64 tensor on the operator's device (over a row-sharded operator the
+    rank's rows: the QR runs on the gathered block and ``T`` and the
+    residual norms are all-reduced); returns ``(theta, V, resid)``
     with ``theta`` and ``resid`` numpy arrays and ``V`` a tensor on that
     device, and the number of rounds run (two block products each).
     """
     from spectra_tpu_torch.linalg.jacobi import eigh_accurate
+    from spectra_tpu_torch.matop.internal_ops import whole_rows
     from spectra_tpu_torch.util.selection import argsort_np
 
     k = U.shape[1]
+    mesh = getattr(op, "mesh", None)
     prev = np.inf
     best = None  # (theta, U, resid, worst) of the best round seen
     rounds = 0
     for _ in range(max_rounds):
         rounds += 1
         W = op.perform_op(U)
-        Q, _ = torch.linalg.qr(torch.cat([U, W], dim=1))
+        Q = whole_rows(lambda B: torch.linalg.qr(B)[0],
+                       torch.cat([U, W], dim=1), mesh)
         AQ = op.perform_op(Q.contiguous())
         T = Q.mT @ AQ
+        if mesh is not None:
+            T = mesh.all_reduce(T)
         T = 0.5 * (T + T.mT)
         th_all, S_all = (a.numpy() for a in eigh_accurate(T))
         # the WANTED k by the selection rule; output order applied last
@@ -112,7 +145,7 @@ def _refine_rounds(op, U, selection, sorting, max_rounds=3, rtol_stop=5e-13):
         U = Q @ S
         AU = AQ @ S
         th_dev = torch.from_numpy(theta).to(Q.device)
-        resid = torch.linalg.vector_norm(AU - U * th_dev[None, :], dim=0).cpu().numpy()
+        resid = col_norms(AU - U * th_dev[None, :], mesh).cpu().numpy()
         worst = float(resid.max()) if len(resid) else 0.0
         scale = float(np.abs(theta).max()) if len(theta) else 1.0
         if best is None or worst < best[3]:
@@ -156,7 +189,7 @@ def compute_mixed(solver, selection, maxit, tol, sorting) -> int:
         solver._info = twin.info()
         solver._mixed = (
             np.zeros(0),
-            torch.zeros((solver._n, 0), dtype=solver._dtype, device=solver._device),
+            torch.zeros((solver._n_local, 0), dtype=solver._dtype, device=solver._device),
             np.zeros(0),
         )
         return 0

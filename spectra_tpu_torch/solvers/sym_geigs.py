@@ -12,7 +12,12 @@ RegularInverse mode):
   product, with ``B v`` products and CG solves ``B^{-1} v`` only.
 """
 
-from spectra_tpu_torch.matop.internal_ops import SymGEigsCholeskyOp, SymGEigsRegInvOp
+from spectra_tpu_torch.matop.internal_ops import (
+    RowsOfWhole,
+    SymGEigsCholeskyOp,
+    SymGEigsRegInvOp,
+    whole_rows,
+)
 from spectra_tpu_torch.solvers.base import HermEigsBase
 from spectra_tpu_torch.util.geigsmode import GEigsMode
 
@@ -25,7 +30,10 @@ class SymGEigsSolver(HermEigsBase):
     :class:`~spectra_tpu_torch.matop.cholesky.SparseCholesky` of B in
     the Cholesky mode (the default), a
     :class:`~spectra_tpu_torch.matop.regular_inverse.SparseRegularInverse`
-    in the RegularInverse mode.
+    in the RegularInverse mode. Over a row-sharded A (an operator with a
+    ``mesh``) B's factor or B stays whole on every rank: its solves and
+    products run on the all-gathered vector, and ``eigenvectors()``
+    returns the rank's rows.
     """
 
     _mode = "lanczos"
@@ -35,7 +43,9 @@ class SymGEigsSolver(HermEigsBase):
             super().__init__(SymGEigsCholeskyOp(op=op, chol=bop), nev, ncv)
             self._chol = bop
         elif mode == GEigsMode.RegularInverse:
-            super().__init__(SymGEigsRegInvOp(op=op, binv=bop), nev, ncv, bop=bop)
+            mesh = getattr(op, "mesh", None)
+            metric = bop if mesh is None else RowsOfWhole(bop, mesh)
+            super().__init__(SymGEigsRegInvOp(op=op, binv=bop), nev, ncv, bop=metric)
             self._chol = None
         else:
             raise ValueError(
@@ -47,4 +57,4 @@ class SymGEigsSolver(HermEigsBase):
     def _vector_transform(self, vecs):
         if self._chol is None:
             return vecs
-        return self._chol.upper_triangular_solve(vecs)
+        return whole_rows(self._chol.upper_triangular_solve, vecs, self._mesh)

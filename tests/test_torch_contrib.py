@@ -234,3 +234,90 @@ def test_lobpcg_dia_operator_runs_k1_plain():
     assert type(mv.__self__.ell).__name__ == "DiaMatrix"
     X = np.random.default_rng(0).normal(size=(36, 3))
     np.testing.assert_allclose(mv(torch.from_numpy(X)).numpy(), A @ X, atol=1e-13)
+
+
+def _digest(a):
+    """SHA-256 (first 16 hex digits) of an array's bytes."""
+    import hashlib
+
+    a = a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
+
+
+@pytest.fixture
+def one_thread():
+    """Torch's CPU BLAS on one thread for the test: the digests below
+    depend on the BLAS build and on how it splits its sums."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _lobpcg_case(name):
+    if name == "constraints":
+        _, V = np.linalg.eigh(_laplacian(8).toarray())
+        s = stt.LOBPCGSolver(_laplacian(8), np.random.default_rng(3).normal(size=(64, 2)),
+                             device=CPU)
+        s.set_constraints(V[:, :2])
+        return s, s.compute(maxit=300, tol_div_n=1e-10)
+    X0 = np.random.default_rng(0 if name == "smallest" else 1).normal(size=(100, 4))
+    if name == "rank_deficient":
+        X0[:, 3] = X0[:, 2]
+    s = stt.LOBPCGSolver(_laplacian(10), X0, device=CPU)
+    return s, s.compute(maxit=200, tol_div_n=1e-10)
+
+
+@pytest.mark.parametrize("name, want", [
+    ("smallest", [4, 61, "0931d951461299b4", "ddaedbb3ab90bb6e"]),
+    ("constraints", [2, 69, "dcb79ea79f413673", "4668a596b00a0340"]),
+    ("rank_deficient", [4, 62, "0078ff3ffd9ff442", "c5dc555d90fd0a4e"]),
+])
+def test_lobpcg_without_mesh_bitwise_unchanged(one_thread, name, want):
+    """Without a mesh LOBPCG gives, bit for bit, what it gave before the
+    row mesh reached ``contrib/lobpcg.py``: the counts and SHA-256
+    digests of the values and vectors recorded from that tree on the
+    CPU on one thread (PyTorch 2.13's CPU build with MKL; another BLAS
+    build may round otherwise), soft locking's guards, the constraints
+    and the rank-deficient recovery's guards on the way."""
+    s, nconv = _lobpcg_case(name)
+    assert [nconv, s.num_iterations(), _digest(s.eigenvalues()),
+            _digest(s.eigenvectors())] == want
+
+
+@pytest.mark.parametrize("name, want", [
+    ("dense_tall", [3, 4, 37, "c877b02fb14a046d", "121b5b7bf5e65e25", "0242b77c0f27632f"]),
+    ("dense_wide", [3, 5, 46, "51f37b58c91fd94c", "291d1714433ec575", "cc112e7105695a57"]),
+    ("sparse_tall", [3, 5, 44, "371d8157deab7a35", "d1a5c936ad9529c2", "3cede29a0ed2f43c"]),
+])
+def test_partial_svd_without_mesh_bitwise_unchanged(one_thread, name, want):
+    """Without a mesh the partial SVD gives, bit for bit, what it gave
+    before the row mesh reached ``contrib/partial_svd.py`` (counts and
+    SHA-256 digests of s, U and V recorded from that tree on the CPU on
+    one thread: PyTorch 2.13's CPU build with MKL; another BLAS build may
+    round otherwise)."""
+    M = {"dense_tall": lambda: np.random.default_rng(2).normal(size=(60, 40)),
+         "dense_wide": lambda: np.random.default_rng(3).normal(size=(40, 60)),
+         "sparse_tall": lambda: sps.random(90, 50, density=0.2, format="csr",
+                                           random_state=np.random.RandomState(3))}[name]()
+    p = stt.PartialSVDSolver(M, 3, 12, device=CPU)
+    nconv = p.compute()
+    assert p._eigs._op.mesh is None
+    assert [nconv, p.num_iterations(), p.num_operations(), _digest(p.singular_values()),
+            _digest(p.matrix_U(3)), _digest(p.matrix_V(3))] == want
+
+
+def test_partial_svd_wide_sparse_block_adjoint():
+    """A wide sparse matrix's ``matrix_V`` applies the adjoint to a block
+    (one column at a time); the JAX package's ELL ``rmatvec`` takes
+    vectors only (ROADMAP.md section 3)."""
+    M = sps.random(64, 128, density=0.1, random_state=np.random.RandomState(0), format="csr")
+    p = stt.PartialSVDSolver(M, 3, 12, device=CPU)
+    assert p.compute() == 3
+    U0, s0, Vt0 = np.linalg.svd(M.toarray())
+    np.testing.assert_allclose(p.singular_values(), s0[:3], atol=1e-12)
+    V = p.matrix_V(3).numpy()
+    np.testing.assert_allclose(V * np.sign(np.sum(V * Vt0[:3].T, axis=0)), Vt0[:3].T,
+                               atol=1e-9)
+    with pytest.raises(ValueError, match="broadcasting"):
+        st.SparseGenMatProd.create(M).perform_adjoint_op(np.ones((64, 3)))

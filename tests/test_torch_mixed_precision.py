@@ -187,3 +187,41 @@ def test_cast_op_f32_and_matmul_settings():
     finally:
         torch.set_float32_matmul_precision(before[0])
         torch.backends.cuda.matmul.allow_tf32 = before[1]
+
+
+def _digest(a):
+    """SHA-256 (first 16 hex digits) of an array's bytes."""
+    import hashlib
+
+    a = a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
+
+
+@pytest.fixture
+def one_thread():
+    """Torch's CPU BLAS on one thread for the test: the digests below
+    depend on the BLAS build and on how it splits its sums."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("fmt, want", [
+    ("dia", [4, 10, 122, "df2200bce1848189", "dc3d8d6b953ef405", "20366d800bdeee98"]),
+    ("ell", [4, 9, 115, "ef12cc66d2258333", "941dfdeb92a46527", "ab6dcad954badbd7"]),
+])
+def test_mixed_without_mesh_bitwise_unchanged(one_thread, fmt, want):
+    """Without a mesh the mixed mode gives, bit for bit, what it gave
+    before the row mesh reached ``solvers/mixed.py``: counts and SHA-256
+    digests of the values, vectors and f64 residuals recorded from that
+    tree on the CPU on one thread (PyTorch 2.13's CPU build with MKL;
+    another BLAS build may round otherwise), g=16 Laplacian,
+    LargestAlge, tol 1e-6."""
+    s = stt.SymEigsSolver(stt.SparseSymMatProd.from_full(_laplacian_2d(16), format=fmt, **CPU),
+                          4, 16)
+    s.set_precision("mixed")
+    s.init()
+    nconv = s.compute(stt.SortRule.LargestAlge, tol=1e-6)
+    assert [nconv, s.num_iterations(), s.num_operations(), _digest(s.eigenvalues()),
+            _digest(s.eigenvectors()), _digest(s.mixed_report()["resid_f64"])] == want

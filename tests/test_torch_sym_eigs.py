@@ -405,3 +405,47 @@ def test_matvec_granularity_breakdown_expansion():
     j = _driver("jax", A, nev=3, ncv=8, v0=v0)
     np.testing.assert_allclose(np.sort(stepped.eigenvalues()),
                                np.sort(np.asarray(j.eigenvalues())), atol=1e-12)
+
+
+def _digest(a):
+    """SHA-256 (first 16 hex digits) of an array's bytes."""
+    import hashlib
+
+    a = a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
+
+
+@pytest.fixture
+def one_thread():
+    """Torch's CPU BLAS on one thread for the test: the digests below
+    depend on the BLAS build and on how it splits its sums."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_chebyshev_without_mesh_bitwise_unchanged(one_thread):
+    """Without a mesh the filter, its Rayleigh quotients, the spectrum
+    bounds and the Chebyshev IRLM give, bit for bit, what they gave
+    before the row mesh reached ``matop/chebyshev.py`` (the values and
+    SHA-256 digests recorded from that tree on the CPU on one thread,
+    g=20 Laplacian; PyTorch 2.13's CPU build with MKL, another BLAS
+    build may round otherwise)."""
+    from spectra_tpu_torch.matop.chebyshev import ChebyshevFilteredOp, estimate_spectrum_bounds
+
+    lap1 = sps.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(20, 20))
+    A = (sps.kron(sps.eye(20), lap1) + sps.kron(lap1, sps.eye(20))).tocsr()
+    op = stt.SparseSymMatProd.from_full(A, device="cpu")
+    lo, hi = estimate_spectrum_bounds(op)
+    assert (lo.hex(), hi.hex()) == ("-0x1.b902510c78404p-2", "0x1.0cb7c23a3fbf8p+3")
+    X = torch.from_numpy(np.random.default_rng(0).normal(size=(400, 3)))
+    filt = ChebyshevFilteredOp.create(op, 0.5, 7.0, 5)
+    assert filt.mesh is None
+    assert _digest(filt.rayleigh_quotients(X)) == "3e3e82ce57095b2f"
+    e = stt.ChebSymEigsSolver(op, nev=4, ncv=16, which="largest", degree=20,
+                              cut_fraction=0.05)
+    e.init()
+    nconv = e.compute()
+    assert [nconv, e.num_iterations(), e.num_operations(), _digest(e.eigenvalues()),
+            _digest(e.eigenvectors())] == [4, 1, 17, "bdc54ee7db5b2f16", "6981eb6b609fa11f"]
