@@ -105,6 +105,14 @@ Phases, each printing JSON lines and its wall time:
     against double at 1e-10) at n = 10^6 and 250,000, K1's f32 launches
     asserted equal to the f32 twin's operations and its f64 block
     launches to two a refinement round;
+11o. ``nonfinite``: config #2's matrix with a NaN on its diagonal
+    through ``SymEigsSolver`` and ``stt.eigsh`` (maxit 5), the mixed
+    matrix at n = 250,000 times 1e38 (its f32 twin overflows) through
+    ``set_precision("mixed")``, and a dense Hermitian n = 1000 holding a
+    NaN through ``HermEigsSolver``: each ends with ``NumericalIssue`` (the
+    frontend with ``NoConvergence``) at the CPU's counts, with K1's
+    launches equal to the operations; K1 on NaN planes, a NaN-carrying
+    x and the twin's infinite planes against its plain version;
 12. the north star as ``scripts/tpu_northstar_100m.py:158-174`` runs
     it: shift-invert with the multigrid inner solve, the stepped driver
     and ``compute_locked`` for the 20 smallest eigenvalues, counted with
@@ -2441,6 +2449,145 @@ def run_mixed_precision(torch, stt, dmod, pf):
     return out
 
 
+def with_nan_diagonal(A, i):
+    """A copy of the CSR matrix A with a NaN at its diagonal entry (i, i)."""
+    A = A.copy()
+    lo, hi = A.indptr[i], A.indptr[i + 1]
+    A.data[lo + int(np.searchsorted(A.indices[lo:hi], i))] = np.nan
+    return A
+
+
+def k1_nan_check(torch, dmod, dia, x):
+    """K1 on ``x`` against its plain version: NaNs in the same places and
+    every other entry bitwise equal. Returns the numbers of NaN and of
+    non-finite entries in y."""
+    y = dmod.dia_spmv(dia.data, dia.offsets, x, dia.n_cols)
+    yp = dmod.dia_spmv_plain(dia.data, dia.offsets, x, dia.n_cols)
+    nan = torch.isnan(y)
+    if not torch.equal(nan, torch.isnan(yp)) or not torch.equal(y[~nan], yp[~nan]):
+        raise RuntimeError("K1 on a non-finite input differs from its plain version")
+    return int(nan.sum()), int((~torch.isfinite(y)).sum())
+
+
+def run_nonfinite(torch, stt, dmod, pf):
+    """Phase 11o: a non-finite operator ends every Lanczos run with
+    ``NumericalIssue`` (``NoConvergence`` from the frontend), never with
+    an exception of torch: config #2's matrix (n = 10^6, DIA on K1) with
+    a NaN on its diagonal through ``SymEigsSolver`` (nev 10, ncv 30,
+    maxit 5) and ``stt.eigsh`` (k 10, ``maxiter=5``); the mixed matrix at
+    n = 250,000 times 1e38, finite in f64 but not its f32 twin, through
+    ``set_precision("mixed")``; and a dense Hermitian n = 1000 holding a
+    NaN through ``HermEigsSolver`` (nev 20, ncv 50). Each run must make
+    ``maxit + 1`` restarts and ``ncv + 1 + maxit * (ncv - nev)``
+    operations, as on the CPU, and K1's launches (counters set to 0 just
+    before each run) must equal its operations. K1 is then held to its
+    plain version on the NaN planes and on a NaN-carrying x (f64), and
+    on the twin's infinite planes (f32): NaNs in the same places, the
+    rest bitwise."""
+    from spectra_tpu_torch.solvers.base import HermEigsBase
+    from spectra_tpu_torch.solvers.mixed import cast_op_f32
+    from spectra_tpu_torch.util.rng import SimpleRandom
+
+    issue = stt.CompInfo.NumericalIssue
+    maxit = 5
+    out = {}
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        dmod.LAUNCHES = 0
+        dmod.ENTRY_LAUNCHES.clear()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, dmod.LAUNCHES, dict(dmod.ENTRY_LAUNCHES)
+
+    def check(label, s, nev, ncv, wall, launches, on_k1=True, **extra):
+        counts = (s.info(), s.num_iterations(), s.num_operations())
+        want = (issue, maxit + 1, ncv + 1 + maxit * (ncv - nev))
+        emit(phase="nonfinite", run=label, info=s.info().name,
+             restarts=counts[1], operations=counts[2], expected=list(want[1:]),
+             k1_launches=launches, wall_s=wall, **extra)
+        if counts != want:
+            raise RuntimeError(f"nonfinite {label}: {counts}, expected {want}")
+        if on_k1 and launches != s.num_operations():
+            raise RuntimeError(f"nonfinite {label}: K1 launched {launches} times")
+        out[label] = launches
+
+    A = with_nan_diagonal(laplacian_2d(G_FULL), G_FULL * G_FULL // 2 + 17)
+    v0 = SimpleRandom(0).random_vec(A.shape[0])
+    op = stt.SparseSymMatProd.from_full(A)
+    if type(op.ell) is not pf.DiaMatrix:
+        raise RuntimeError(f"config #2's matrix is not DIA on the card: {type(op.ell)}")
+    s = stt.SymEigsSolver(op, nev=10, ncv=30)
+    s.init(v0)
+    nconv, wall, k1, _ = counted(
+        lambda: s.compute(stt.SortRule.LargestAlge, maxit=maxit))
+    check("sym_eigs_config2_nan", s, 10, 30, wall, k1, nconv=nconv)
+
+    seen = []
+    orig = HermEigsBase.__dict__["compute"]
+
+    def recording(self, *args, **kwargs):
+        seen.append(self)
+        return orig(self, *args, **kwargs)
+
+    def frontend():
+        try:
+            stt.eigsh(A, k=10, which="LA", maxiter=maxit)
+        except stt.NoConvergence as err:
+            return str(err)
+        raise RuntimeError("nonfinite: eigsh returned on a NaN matrix")
+
+    HermEigsBase.compute = recording
+    try:
+        msg, wall, k1, _ = counted(frontend)
+    finally:
+        HermEigsBase.compute = orig
+    if "NumericalIssue" not in msg:
+        raise RuntimeError(f"nonfinite: eigsh raised {msg!r}")
+    check("eigsh_config2_nan", seen[0], 10, seen[0]._ncv, wall, k1,
+          raised="NoConvergence", default_ncv=seen[0]._ncv)
+
+    nan_planes = k1_nan_check(torch, dmod, op.ell, torch.from_numpy(v0).cuda())
+    x = torch.randn(A.shape[0], dtype=torch.float64, device="cuda")
+    x[torch.randint(0, A.shape[0], (64,), device="cuda")] = float("nan")
+    nan_x = k1_nan_check(torch, dmod, op.ell, x)
+    del s, op, x
+
+    B = mixed_matrix(250_000) * 1e38
+    opm = stt.SparseSymMatProd.from_full(B)
+    s = stt.SymEigsSolver(opm, nev=10, ncv=30)
+    s.set_precision("mixed")
+    s.init(SimpleRandom(0).random_vec(B.shape[0]))
+    nconv, wall, k1, entries = counted(
+        lambda: s.compute(stt.SortRule.LargestAlge, maxit=maxit, tol=1e-6))
+    check("mixed_f32_overflow_n250000", s, 10, 30, wall, k1, nconv=nconv,
+          k1_entries=entries)
+    if entries != {"f32": s.num_operations()}:
+        raise RuntimeError(f"nonfinite mixed: K1 entries {entries}")
+    twin = cast_op_f32(opm).ell
+    if bool(torch.isfinite(twin.data).all()):
+        raise RuntimeError("the f32 twin of the scaled matrix did not overflow")
+    x32 = torch.randn(B.shape[0], dtype=torch.float32, device="cuda")
+    nan_twin = k1_nan_check(torch, dmod, twin, x32)
+    del s, opm, twin, x32
+
+    H = rand_herm(1000)
+    H[500, 500] = np.nan
+    s = stt.HermEigsSolver(stt.DenseHermMatProd.create(H), nev=20, ncv=50)
+    s.init()
+    nconv, wall, k1, _ = counted(
+        lambda: s.compute(stt.SortRule.LargestAlge, maxit=maxit))
+    check("herm_dense_n1000_nan", s, 20, 50, wall, k1, on_k1=False, nconv=nconv)
+    if k1 != 0:
+        raise RuntimeError(f"nonfinite: the dense Hermitian run launched K1 {k1} times")
+    emit(phase="nonfinite_k1", nan_and_nonfinite_in_y={
+        "f64_nan_planes": nan_planes, "f64_nan_x": nan_x,
+        "f32_twin_planes": nan_twin}, bitwise_outside_nan=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def scipy_dia_rows(A):
     """Row-aligned DIA ``(offsets, rows)`` of ``A`` by scipy's ``todia``
     and the row alignment, the route the port took before its native
@@ -3747,6 +3894,7 @@ def main(argv):
     k1_blocks = phase("k1_block_timing", phase_k1_blocks, torch, dmod, pf, rates, k1_floor)
     k1_frontends = phase("frontends", run_frontends, torch, stt, dmod, pmg, pf)
     k1_mixed = phase("mixed_precision", run_mixed_precision, torch, stt, dmod, pf)
+    k1_nonfinite = phase("nonfinite", run_nonfinite, torch, stt, dmod, pf)
     ns_op, k1_ns, k2_ns, ns_cycles, ns_solves = phase(
         "north_star", run_north_star, torch, stt, dmod, dsmod, pmg, pf, A243,
         dia243, matrix_s,
@@ -3793,6 +3941,7 @@ def main(argv):
             block_timings=k1_blocks,
             launches_frontends=k1_frontends,
             launches_mixed_by_n={str(k): v for k, v in k1_mixed.items()},
+            launches_nonfinite=k1_nonfinite,
             launches_north_star=k1_ns, launches_multidevice_g160=md["k1_launches"],
             launches_multidevice_cheb_g1000=cheb_md["launches"],
             multidevice_cheb_g1000=cheb_md["k1_ext"],

@@ -36,7 +36,7 @@ class BKFactors(NamedTuple):
     e: torch.Tensor  # (n,) subdiagonal of D: e[k] = D[k+1, k] for 2x2 pivots
     is2x2: torch.Tensor  # (n,) bool: True at the first index of a 2x2 pivot
     perm: torch.Tensor  # (n,) int64: row k of the pivoted matrix is A[perm[k]]
-    ok: bool  # False if a pivot block was singular
+    ok: bool  # False if a pivot block was singular or not finite
 
 
 def _swap(M, p: int, q: int, cols=slice(None)):
@@ -134,6 +134,10 @@ def factorize(A, shift=0.0) -> BKFactors:
         _realify_diag(M)
         ok &= ~sing
         k += step
+    # A non-finite entry of A reaches a pivot through the trailing
+    # updates; such factors would solve to NaN, or to finite garbage
+    # for an infinite pivot.
+    ok &= torch.isfinite(d).all() & torch.isfinite(e).all()
     return BKFactors(
         L=L, d=d, e=e,
         is2x2=torch.tensor(is2x2, dtype=torch.bool, device=device),

@@ -103,11 +103,26 @@ def jacobi_eigh(A, max_sweeps: int = 30):
     return evals[order], V[:, order]
 
 
+def nan_eigenpairs(A):
+    """What ``jnp.linalg.eigh`` gives for a matrix with a non-finite
+    entry: NaN eigenvalues (real) and NaN eigenvectors (A's dtype), CPU
+    tensors."""
+    m = A.shape[-1]
+    w = torch.full((m,), float("nan"), dtype=A.real.dtype)
+    return w, torch.full((m, m), float("nan"), dtype=A.dtype)
+
+
 def eigh_accurate(A):
     """``eigh`` of a symmetric (or Hermitian) matrix in f64 on the host,
     LAPACK's: ``(eigenvalues ascending, eigenvectors as columns)`` as CPU
-    tensors. Accepts numpy arrays and tensors."""
+    tensors. Accepts numpy arrays and tensors. A matrix with a
+    non-finite entry gives NaN pairs (:func:`nan_eigenpairs`), as
+    ``jnp.linalg.eigh`` does, so that the solvers end on it with
+    ``NumericalIssue``; a finite matrix goes to ``torch.linalg.eigh``
+    as it is, and a failure of LAPACK on it still raises."""
     A = torch.as_tensor(A).cpu()
     if not A.dtype.is_complex:
         A = A.to(torch.float64)
+    if not torch.isfinite(A).all():
+        return nan_eigenpairs(A)
     return torch.linalg.eigh(A)

@@ -17,6 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from spectra_tpu_torch.linalg.jacobi import nan_eigenpairs
 from spectra_tpu_torch.ops.gemv import col_norms
 from spectra_tpu_torch.util.selection import SortRule, argsort
 
@@ -34,11 +35,10 @@ def eigh_host(M):
     CPU tensors. A matrix with a non-finite entry gives NaNs, as
     ``jnp.linalg.eigh`` does (numpy would raise), so that the solvers
     stop on it with ``NumericalIssue``."""
-    M = M.detach().cpu().numpy()
-    if not np.isfinite(M).all():
-        w = np.full(M.shape[0], np.nan)
-        return torch.from_numpy(w), torch.from_numpy(np.full(M.shape, np.nan, M.dtype))
-    w, s = np.linalg.eigh(M)
+    M = M.detach().cpu()
+    if not torch.isfinite(M).all():
+        return nan_eigenpairs(M)
+    w, s = np.linalg.eigh(M.numpy())
     return torch.from_numpy(w), torch.from_numpy(s)
 
 

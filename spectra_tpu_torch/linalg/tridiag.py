@@ -15,12 +15,15 @@ reference (include/Spectra/LinAlg/UpperHessenbergQR.h:459-709):
 
 The eigendecomposition is ``torch.linalg.eigh`` on the dense
 embedding, as the JAX package routes it off the TPU
-(``spectra_tpu/linalg/jacobi.py:157-169``).
+(``spectra_tpu/linalg/jacobi.py:157-169``), through
+:func:`~spectra_tpu_torch.linalg.jacobi.eigh_accurate`: a non-finite
+T gives NaN pairs, as ``jnp.linalg.eigh`` does.
 """
 
 import torch
 
 from spectra_tpu_torch.linalg.givens import givens_rotation
+from spectra_tpu_torch.linalg.jacobi import eigh_accurate
 
 
 def _host(t):
@@ -135,4 +138,4 @@ def tridiag_to_dense(diag, subdiag):
 def tridiag_eigen(diag, subdiag):
     """Full eigendecomposition of a symmetric tridiagonal matrix:
     (eigenvalues ascending, eigenvectors as columns)."""
-    return torch.linalg.eigh(tridiag_to_dense(diag, subdiag))
+    return eigh_accurate(tridiag_to_dense(diag, subdiag))

@@ -104,7 +104,8 @@ class DenseSymShiftSolve:
         fac = bkldlt.factorize(self.mat, sigma)
         if not fac.ok:
             raise ShiftFactorizationError(
-                "factorization failed: sigma is an eigenvalue of the matrix"
+                "factorization failed: sigma is an eigenvalue of the "
+                "matrix, or the matrix has a non-finite entry"
             )
         return dataclasses.replace(self, factors=fac)
 

@@ -164,6 +164,7 @@ class SymShiftInvert:
         fac = bkldlt.factorize(torch.from_numpy(shifted).to(device), 0.0)
         if not fac.ok:
             raise ShiftFactorizationError(
-                "factorization failed: A - sigma * B is singular"
+                "factorization failed: A - sigma * B is singular or "
+                "has a non-finite entry"
             )
         return _BKShiftedSolve(factors=fac)

@@ -41,6 +41,7 @@ from typing import NamedTuple
 import torch
 
 from spectra_tpu_torch.linalg import krylov
+from spectra_tpu_torch.linalg.jacobi import eigh_accurate
 from spectra_tpu_torch.linalg.tridiag import (
     apply_yq,
     tridiag_eigen,
@@ -70,7 +71,7 @@ def _retrieve_ritzpair(H, selection: SortRule, nev: int, full_h: bool = False):
     with thick restarts it carries the arrowhead coupling, so ``full_h``
     decomposes the whole symmetric matrix (a dense host ``eigh``)."""
     if full_h:
-        evals, evecs = torch.linalg.eigh(0.5 * (H + H.T))
+        evals, evecs = eigh_accurate(0.5 * (H + H.T))
     else:
         evals, evecs = tridiag_eigen(H.diagonal(), H.diagonal(-1))
     ind = argsort(selection, evals)
@@ -147,7 +148,7 @@ def _restart_thick_compress(arnop, state, k_new: int, selection: SortRule):
     (``h_j = v_j^T A v_k = s_j`` analytically, DGKS-corrected): one
     operator application."""
     H = state.H
-    evals, Y = torch.linalg.eigh(torch.triu(H) + torch.triu(H, 1).T)
+    evals, Y = eigh_accurate(torch.triu(H) + torch.triu(H, 1).T)
     ind = argsort(selection, evals)
     Ym = Y[:, ind]
     Ym[:, k_new:] = 0.0

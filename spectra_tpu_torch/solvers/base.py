@@ -312,6 +312,10 @@ class HermEigsBase:
         budget = 0
         self._history = []
         while budget < maxit:
+            if self._matvec_granularity and not np.isfinite(carry.state.beta):
+                # The stepped driver tests ||f|| before every restart,
+                # the first one included, as the JAX package's does.
+                break
             budget = min(budget + chunk, maxit)
             carry = irlm_restarts(self._arnop, carry, tol, budget, **fixed)
             beta = carry.state.beta

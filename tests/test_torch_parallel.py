@@ -725,6 +725,37 @@ def case_davidson_host(mesh, inp):
     return out
 
 
+def nonfinite_laplacian():
+    """The g=16 Laplacian with a NaN on its diagonal at row 200: in the
+    last rank's rows on 2 and 4 ranks."""
+    A = _laplacian_2d(16).tolil()
+    A[200, 200] = np.nan
+    return A.tocsr()
+
+
+def case_nonfinite(mesh, inp):
+    """``SymEigsSolver`` over ``ShardedStencilMatProd`` of a matrix with a
+    NaN in one rank's rows, single-shot and stepped: each rank's
+    (info, nconv, restarts, operations), gathered as one row a rank, and
+    the one-rank run's beside them."""
+    import spectra_tpu_torch as stt
+
+    A = nonfinite_laplacian()
+    out = {}
+    for stepped in (False, True):
+        key = "stepped" if stepped else "single"
+        rows = []
+        for op in (_stencil(A, mesh), stt.SparseSymMatProd.from_full(A, device="cpu")):
+            e = stt.SymEigsSolver(op, 4, 16)
+            e.set_matvec_granularity(stepped)
+            e.init(_v0(256))
+            nconv = e.compute(stt.SortRule.SmallestAlge, maxit=20)
+            rows.append([e.info().value, nconv, e.num_iterations(), e.num_operations()])
+        out[key] = _gather(torch.tensor(rows[:1]), mesh)
+        out[key + "_ref"] = np.asarray(rows[1])
+    return out
+
+
 CASES = {name[5:]: fn for name, fn in list(globals().items()) if name.startswith("case_")}
 
 
@@ -995,6 +1026,12 @@ def jax_case(name):
             want=st.SortRule.SmallestAlge, max_rounds=2,
         )
         return dict(values=np.sort(np.asarray(e.eigenvalues())), nconv=nconv)
+    if name == "nonfinite":
+        op = ShardedStencilMatProd.create(dia_from_scipy(nonfinite_laplacian()), mesh)
+        e = st.SymEigsSolver(op, 4, 16)
+        e.init(_rows(v0(256)))
+        nconv = int(e.compute(st.SortRule.SmallestAlge, maxit=20))
+        return dict(counts=[e.info().value, nconv, e.num_iterations(), e.num_operations()])
     if name in ("hilo_matvec", "hilo_solver"):
         op = ShardedStencilHiLoMatProd.create(dia_from_scipy(_laplacian_2d(16)), mesh, chunk=32)
         if name == "hilo_solver":
@@ -1322,6 +1359,27 @@ def test_sharded_compute_locked_continuation(port, k):
     assert np.abs(vals[:, None] - w_all[None, :]).min(axis=1).max() < 1e-8
     np.testing.assert_allclose(vals[:2], w_all[:2], atol=1e-8)
     np.testing.assert_allclose(vals[:2], ref["values"][:2], atol=1e-8)
+
+
+@pytest.mark.parametrize("k", MESHES)
+def test_sharded_nonfinite_ends_with_numerical_issue(port, k):
+    """A NaN in one rank's rows: every rank reaches the same decision
+    from the all-reduced projection and norm, so each ends with
+    ``NumericalIssue`` and the same counts, those of the one-rank run
+    and of the JAX package on its 8-device mesh (20 restarts, 17 + 20 *
+    12 operations); stepped, the run stops before its first restart.
+    The world finishing at all shows that no rank left a collective
+    another waited in."""
+    import spectra_tpu_torch as stt
+
+    got = _get(port, k, "nonfinite")
+    issue = stt.CompInfo.NumericalIssue.value
+    single, stepped = got["single"], got["stepped"]
+    assert single.shape == stepped.shape == (k, 4)
+    assert (single == got["single_ref"][None, :]).all()
+    assert (stepped == got["stepped_ref"][None, :]).all()
+    assert single[0].tolist() == jax_case("nonfinite")["counts"] == [issue, 0, 21, 257]
+    assert stepped[0].tolist() == [issue, 0, 1, 17]
 
 
 @pytest.mark.parametrize("k", MESHES)
