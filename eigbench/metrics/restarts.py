@@ -1,0 +1,6 @@
+"""Driver: restarts a solve (``num_iterations()``), mean over the
+traced run's requests."""
+
+
+def read(run):
+    return run.mean("iterations")
