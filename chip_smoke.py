@@ -249,6 +249,34 @@ G_MD = 160
 G_MD_SOLVE = 32
 
 
+def count_entries(mod):
+    """From now on, count the launches of ``mod`` (``ops.dia_spmv``, K1,
+    or ``ops.dia_ds``, K2) by entry in the dict it returns, cleared: K1's
+    ``"f64"``, ``"f32"``, ``"f64_block"``, ``"f32_block"``, K2's ``"f64"``,
+    ``"padded"``, ``"ext"``. Every launch looks its kernel up once through
+    ``mod._kernel``, whose arguments name the entry; the first call wraps
+    that lookup, later ones return the same dict."""
+    counts = getattr(mod._kernel, "entry_counts", None)
+    if counts is None:
+        lookup, counts = mod._kernel, {}
+        if mod.__name__.endswith("dia_spmv"):
+            def entry(dtype, block):
+                return mod._SUFFIX[dtype] + ("_block" if block else "")
+        else:
+            def entry(symbol):
+                return symbol.rsplit("_", 1)[1]
+
+        def counted(*key):
+            name = entry(*key)
+            counts[name] = counts.get(name, 0) + 1
+            return lookup(*key)
+
+        counted.entry_counts = counts
+        mod._kernel = counted
+    counts.clear()
+    return counts
+
+
 def emit(**obj):
     print(json.dumps(obj), flush=True)
 
@@ -697,13 +725,18 @@ def run_main_path(torch, stt, dmod):
 def device_time_rows(prof):
     """(device ms, kernel name, calls) per kernel, largest first. Kernel
     rows only: an aten operator's row repeats the device time of the
-    kernels it launched. One stream, so kernels do not overlap."""
+    kernels it launched, and the program's spans (``profiling.SPANS``)
+    appear as device rows that span their kernels. One stream, so
+    kernels do not overlap."""
     from torch.autograd import DeviceType
+
+    from spectra_tpu_torch.util.profiling import SPANS
 
     rows = [
         (ev.self_device_time_total / 1e3, ev.key, ev.count)
         for ev in prof.key_averages()
         if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
+        and ev.key not in SPANS
     ]
     rows.sort(reverse=True)
     return rows
@@ -2281,7 +2314,6 @@ def run_frontends(torch, stt, dmod, pmg, pf):
 
         torch.cuda.synchronize()
         dmod.LAUNCHES = 0
-        dmod.ENTRY_LAUNCHES.clear()
         pmg.CYCLES = pmg.SOLVES = 0
         for cls, orig in saved.items():
             cls.compute = recording(orig)
@@ -2397,12 +2429,12 @@ def run_mixed_precision(torch, stt, dmod, pf):
             s.init(v0)
             torch.cuda.synchronize()
             dmod.LAUNCHES = 0
-            dmod.ENTRY_LAUNCHES.clear()
+            entries = count_entries(dmod)
             t0 = time.perf_counter()
             nconv = s.compute(stt.SortRule.LargestAlge, maxit=500, tol=tol)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            return nconv, wall, s, op, dict(dmod.ENTRY_LAUNCHES)
+            return nconv, wall, s, op, dict(entries)
 
         nc_m, wall_m, s_m, op, l_m = run("mixed", 1e-6)
         nc_d, wall_d, s_d, _, l_d = run("double", 1e-10)
@@ -2495,11 +2527,11 @@ def run_nonfinite(torch, stt, dmod, pf):
     def counted(fn):
         torch.cuda.synchronize()
         dmod.LAUNCHES = 0
-        dmod.ENTRY_LAUNCHES.clear()
+        entries = count_entries(dmod)
         t0 = time.perf_counter()
         res = fn()
         torch.cuda.synchronize()
-        return res, time.perf_counter() - t0, dmod.LAUNCHES, dict(dmod.ENTRY_LAUNCHES)
+        return res, time.perf_counter() - t0, dmod.LAUNCHES, dict(entries)
 
     def check(label, s, nev, ncv, wall, launches, on_k1=True, **extra):
         counts = (s.info(), s.num_iterations(), s.num_operations())
@@ -3145,8 +3177,7 @@ def run_multidevice_g160(torch, stt, dmod, dsmod, pmg, pf, rates):
     v0 = SimpleRandom(0).random_vec(n)
     torch.cuda.synchronize()
     dmod.LAUNCHES = dsmod.LAUNCHES = 0
-    dmod.ENTRY_LAUNCHES.clear()
-    dsmod.ENTRY_LAUNCHES.clear()
+    k2_entries = count_entries(dsmod)
     pmg.CYCLES = pmg.SOLVES = 0
     mesh.reset_stats()
     t0 = time.perf_counter()
@@ -3165,7 +3196,7 @@ def run_multidevice_g160(torch, stt, dmod, dsmod, pmg, pf, rates):
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
     k1, k2 = dmod.LAUNCHES, dsmod.LAUNCHES
-    k2_ext = dsmod.ENTRY_LAUNCHES.get("ext", 0)
+    k2_ext = k2_entries.get("ext", 0)
     cycles, solves = pmg.CYCLES, pmg.SOLVES
     stats = dict(mesh.stats)
     smg = si.mg
@@ -3206,7 +3237,7 @@ def run_multidevice_g160(torch, stt, dmod, dsmod, pmg, pf, rates):
          tail_levels=len(smg.bottom.ops), level_dims=[list(dm) for dm in smg.dims_per_level],
          k1_launches=k1, expected_k1_launches=exp_k1, k2_launches=k2,
          k2_ext_launches=k2_ext, expected_k2_ext_launches=exp_ext,
-         k2_entry_launches=dict(dsmod.ENTRY_LAUNCHES), build_s=build_s,
+         k2_entry_launches=dict(k2_entries), build_s=build_s,
          build_parts_s=si.build_s, solve_s=solve_s, collectives=stats,
          all_reduces_per_operation=stats["all_reduce"] / max(1, steps),
          driver_all_reduces_per_operation=driver_ar / max(1, steps),
@@ -3268,10 +3299,10 @@ def run_multidevice_cheb(torch, stt, dmod, dsmod, pf, main, rates):
     v0 = SimpleRandom(0).random_vec(n)
     torch.cuda.synchronize()
     dmod.LAUNCHES = dsmod.LAUNCHES = 0
-    dmod.ENTRY_LAUNCHES.clear()
+    k1_entries = count_entries(dmod)
     mesh.reset_stats()
     e, nconv, wall = solve_config2(torch, stt, op, v0)
-    launches, k2, entries = dmod.LAUNCHES, dsmod.LAUNCHES, dict(dmod.ENTRY_LAUNCHES)
+    launches, k2, entries = dmod.LAUNCHES, dsmod.LAUNCHES, dict(k1_entries)
     stats = dict(mesh.stats)
     vals = np.sort(e.eigenvalues())
     ops = e.num_operations()
@@ -3369,11 +3400,12 @@ def md_composed(torch, stt, dmod, dsmod, mesh, one, rank, checks):
 
     meshes = [("two", mesh), ("one", one)]
     out = dict(config2={}, partial_svd={}, mixed={}, lobpcg={})
+    k1_entries = count_entries(dmod)
 
     def counted():
         torch.cuda.synchronize()
         dmod.LAUNCHES = 0
-        dmod.ENTRY_LAUNCHES.clear()
+        k1_entries.clear()
         return dict(mesh.stats), time.perf_counter()
 
     def check(case, op, m, v):
@@ -3390,7 +3422,7 @@ def md_composed(torch, stt, dmod, dsmod, mesh, one, rank, checks):
         op=type(op).__name__, nconv=nconv, info=e.info().name,
         values=np.sort(e.eigenvalues()).tolist(), restarts=e.num_iterations(),
         operations=ops, launches=dmod.LAUNCHES, expected_launches=31 + ops * DEGREE + 1,
-        entry_launches=dict(dmod.ENTRY_LAUNCHES), wall_s=wall,
+        entry_launches=dict(k1_entries), wall_s=wall,
         collectives={k: v - before[k] for k, v in mesh.stats.items()},
         history=e.convergence_history())
     rows = n // mesh.size
@@ -3446,7 +3478,7 @@ def md_composed(torch, stt, dmod, dsmod, mesh, one, rank, checks):
             local=type(op_s.local).__name__, nconv=nconv, info=sol.info().name,
             values=np.sort(sol.eigenvalues()).tolist(), twin_restarts=sol.num_iterations(),
             twin_operations=sol.num_operations() - 3 * nconv,
-            refine_rounds=rep["refine_rounds"], entry_launches=dict(dmod.ENTRY_LAUNCHES),
+            refine_rounds=rep["refine_rounds"], entry_launches=dict(k1_entries),
             max_resid_f64=float(np.max(rep["resid_f64"])), wall_s=wall)
         twin = cast_op_f32(op_s)
         check(f"mixed_f32_twin_{label}", twin, m,

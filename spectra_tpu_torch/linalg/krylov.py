@@ -79,6 +79,7 @@ import torch
 
 from spectra_tpu_torch.ops.gemv import basis_apply, basis_apply_block
 from spectra_tpu_torch.util import dtypes
+from spectra_tpu_torch.util.profiling import span
 from spectra_tpu_torch.util.rng import uniform_m05_05
 
 
@@ -225,33 +226,34 @@ def _reorth_loop(arnop, V, f, beta: float, H, i: int, mode: str = "lanczos"):
     structured operator's extra ones are noise removal. Returns
     (f, beta).
     """
-    m, n = V.shape[0], arnop.rows()
-    eps = dtypes.eps(V.dtype)
-    beta_thresh = eps * math.sqrt(n)
+    with span("krylov.reorth"):
+        m, n = V.shape[0], arnop.rows()
+        eps = dtypes.eps(V.dtype)
+        beta_thresh = eps * math.sqrt(n)
 
-    Vp = arnop.ortho_basis(V)
-    Vf = arnop.adjoint_product(Vp, f)
-    Vf_host = Vf.cpu()
-    coeffs = Vf_host.tolist()
-    for _ in range(5):
-        if not _maxabs(coeffs) > eps * beta:
-            break
-        if beta < beta_thresh:
-            return torch.zeros_like(f), 0.0
-        f = f - basis_apply(Vp, Vf)
-        if mode == "lanczos":
-            hsub = H[i - 1, i].item() + _h_entry(H, coeffs[i - 1])
-            H[i - 1, i] = hsub
-            H[i, i - 1] = hsub
-            H[i, i] += _h_entry(H, coeffs[i])
-        else:
-            # Full column correction h <- h + Vf (entries past i are zero
-            # by the zero-row invariant of V).
-            H[:, i] += _h_entry(H, Vf_host[:m]).to(H.dtype)
-        Vf, fnorm = arnop.adjoint_and_norm(Vp, f)
-        Vf_host, beta = _read_with_norm(Vf, fnorm)
+        Vp = arnop.ortho_basis(V)
+        Vf = arnop.adjoint_product(Vp, f)
+        Vf_host = Vf.cpu()
         coeffs = Vf_host.tolist()
-    return f, beta
+        for _ in range(5):
+            if not _maxabs(coeffs) > eps * beta:
+                break
+            if beta < beta_thresh:
+                return torch.zeros_like(f), 0.0
+            f = f - basis_apply(Vp, Vf)
+            if mode == "lanczos":
+                hsub = H[i - 1, i].item() + _h_entry(H, coeffs[i - 1])
+                H[i - 1, i] = hsub
+                H[i, i - 1] = hsub
+                H[i, i] += _h_entry(H, coeffs[i])
+            else:
+                # Full column correction h <- h + Vf (entries past i are zero
+                # by the zero-row invariant of V).
+                H[:, i] += _h_entry(H, Vf_host[:m]).to(H.dtype)
+            Vf, fnorm = arnop.adjoint_and_norm(Vp, f)
+            Vf_host, beta = _read_with_norm(Vf, fnorm)
+            coeffs = Vf_host.tolist()
+        return f, beta
 
 
 def _read_with_norm(x, norm):
@@ -338,10 +340,11 @@ def _pre_op(arnop, state: KrylovState, i: int, mode: str = "lanczos"):
 
 def _step(arnop, state: KrylovState, i: int, mode: str = "lanczos") -> KrylovState:
     """One factorization step: extend from i columns to i+1."""
-    v, h_sub, nops, _ = _pre_op(arnop, state, i, mode)
-    w = arnop.perform_op(v)
-    f, beta = _post_op(arnop, state.V, state.H, v, w, h_sub, i, mode)
-    return state._replace(f=f, beta=beta, k=i + 1, nops=nops + 1)
+    with span("krylov.step"):
+        v, h_sub, nops, _ = _pre_op(arnop, state, i, mode)
+        w = arnop.perform_op(v)
+        f, beta = _post_op(arnop, state.V, state.H, v, w, h_sub, i, mode)
+        return state._replace(f=f, beta=beta, k=i + 1, nops=nops + 1)
 
 
 def _step_selective(arnop, state: KrylovState, i: int, w_prev, w_cur,
@@ -360,14 +363,15 @@ def _step_selective(arnop, state: KrylovState, i: int, w_prev, w_cur,
     triggered re-orthogonalization: the Parlett-Scott pairwise rule).
     Returns ``(state, w_cur, w_new, force_next)``.
     """
-    v, h_sub, nops, restarted = _pre_op(arnop, state, i)
-    w = arnop.perform_op(v)
-    f, beta, w_cur, w_new, force_next = _post_op_selective(
-        arnop, state.V, state.H, v, w, h_sub, i, w_prev, w_cur, force,
-        restarted,
-    )
-    state = state._replace(f=f, beta=beta, k=i + 1, nops=nops + 1)
-    return state, w_cur, w_new, force_next
+    with span("krylov.step"):
+        v, h_sub, nops, restarted = _pre_op(arnop, state, i)
+        w = arnop.perform_op(v)
+        f, beta, w_cur, w_new, force_next = _post_op_selective(
+            arnop, state.V, state.H, v, w, h_sub, i, w_prev, w_cur, force,
+            restarted,
+        )
+        state = state._replace(f=f, beta=beta, k=i + 1, nops=nops + 1)
+        return state, w_cur, w_new, force_next
 
 
 def _post_op_selective(arnop, V, H, v, w, h_sub: float, i: int, w_prev,

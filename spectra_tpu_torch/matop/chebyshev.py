@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from spectra_tpu_torch.util.dtypes import numpy_dtype
+from spectra_tpu_torch.util.profiling import span
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -68,11 +69,12 @@ class ChebyshevFilteredOp:
 
     def perform_op(self, x):
         # T_0 = x, T_1 = L(A) x, T_{k+1} = 2 L(A) T_k - T_{k-1}
-        t_prev = x
-        t_cur = self._scaled_matvec(x)
-        for _ in range(1, self.degree):
-            t_prev, t_cur = t_cur, 2.0 * self._scaled_matvec(t_cur) - t_prev
-        return t_cur
+        with span("cheb.filter"):
+            t_prev = x
+            t_cur = self._scaled_matvec(x)
+            for _ in range(1, self.degree):
+                t_prev, t_cur = t_cur, 2.0 * self._scaled_matvec(t_cur) - t_prev
+            return t_cur
 
     def rayleigh_quotients(self, vecs):
         """True eigenvalues of the ORIGINAL operator for (approximately
@@ -100,22 +102,23 @@ def estimate_spectrum_bounds(op, steps: int = 30, safety: float = 0.05):
     from spectra_tpu_torch.matop.arnoldi_op import ArnoldiOp
     from spectra_tpu_torch.util.rng import SimpleRandom
 
-    n = op.rows()
-    m = min(steps, n)
-    arnop = ArnoldiOp.create(op)
-    v0 = torch.from_numpy(SimpleRandom(0).random_vec(n, numpy_dtype(op.dtype)))
-    if arnop.mesh is not None:
-        v0 = arnop.mesh.local_rows(v0)
-    state = krylov.init(arnop, v0.to(op.device), m)
-    state = krylov.factorize_from(arnop, state, 1, "lanczos")
-    H = state.H.numpy()
-    theta, Y = np.linalg.eigh(0.5 * (H + H.T))
-    beta = state.beta
-    # Per-Ritz-value enclosure: |theta_i - lambda| <= |Y[m-1, i]| * beta
-    # (the Kaniel-Paige residual bound), much tighter than +-||f||.
-    err_lo = abs(Y[-1, 0]) * beta
-    err_hi = abs(Y[-1, -1]) * beta
-    span = float(theta[-1] - theta[0]) or 1.0
-    lo = float(theta[0]) - err_lo - safety * span
-    hi = float(theta[-1]) + err_hi + safety * span
-    return lo, hi
+    with span("cheb.bounds"):
+        n = op.rows()
+        m = min(steps, n)
+        arnop = ArnoldiOp.create(op)
+        v0 = torch.from_numpy(SimpleRandom(0).random_vec(n, numpy_dtype(op.dtype)))
+        if arnop.mesh is not None:
+            v0 = arnop.mesh.local_rows(v0)
+        state = krylov.init(arnop, v0.to(op.device), m)
+        state = krylov.factorize_from(arnop, state, 1, "lanczos")
+        H = state.H.numpy()
+        theta, Y = np.linalg.eigh(0.5 * (H + H.T))
+        beta = state.beta
+        # Per-Ritz-value enclosure: |theta_i - lambda| <= |Y[m-1, i]| * beta
+        # (the Kaniel-Paige residual bound), much tighter than +-||f||.
+        err_lo = abs(Y[-1, 0]) * beta
+        err_hi = abs(Y[-1, -1]) * beta
+        width = float(theta[-1] - theta[0]) or 1.0
+        lo = float(theta[0]) - err_lo - safety * width
+        hi = float(theta[-1]) + err_hi + safety * width
+        return lo, hi

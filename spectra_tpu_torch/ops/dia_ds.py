@@ -30,8 +30,7 @@ The TPU's chunk picker (``pick_hilo_chunk``, ``_vmem_estimate``) encodes
 its 16 MB of VMEM and does not carry over: the kernel has no chunks.
 What remains is :func:`hilo_suitable`.
 
-``LAUNCHES`` counts kernel launches (CUDA only); ``ENTRY_LAUNCHES``
-splits the same count by entry (``"f64"``, ``"padded"``, ``"ext"``).
+``LAUNCHES`` counts kernel launches (CUDA only).
 """
 
 import ctypes
@@ -45,8 +44,6 @@ MAX_DIAGS = 64
 
 #: Kernel launches since import (or since a caller reset it to 0).
 LAUNCHES = 0
-#: The same launches by entry (a caller may clear it with ``LAUNCHES``).
-ENTRY_LAUNCHES: dict = {}
 
 _SPLIT = 4097.0  # 2**12 + 1: the f32 Dekker split constant
 _KERNELS: dict = {}
@@ -185,8 +182,6 @@ def _launch(symbol, dh, dl, xs, out_dtype, n_out, offsets, n, extra):
     if err != 0:
         raise RuntimeError(f"dia_ds kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
-    entry = symbol.rsplit("_", 1)[1]
-    ENTRY_LAUNCHES[entry] = ENTRY_LAUNCHES.get(entry, 0) + 1
     return ys
 
 

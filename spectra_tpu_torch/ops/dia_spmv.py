@@ -31,9 +31,7 @@ flat row-major arrays, one pack of 16 bytes a thread where ``ncol``
 allows it.
 
 ``LAUNCHES`` counts kernel launches (CUDA only), so a run can show
-that its SpMVs went through the kernel; ``ENTRY_LAUNCHES`` splits the
-same count by entry (``"f64"``, ``"f32"``, ``"f64_block"``,
-``"f32_block"``).
+that its SpMVs went through the kernel.
 """
 
 import ctypes
@@ -52,8 +50,6 @@ MAX_DIAGS = 64
 
 #: Kernel launches since import (or since a caller reset it to 0).
 LAUNCHES = 0
-#: The same launches by entry (a caller may clear it with ``LAUNCHES``).
-ENTRY_LAUNCHES: dict = {}
 
 #: Block sizes the kernel takes, and the most blocks it launches (a
 #: grid-stride loop covers the rest).
@@ -210,6 +206,4 @@ def dia_spmv(data, offsets, x, n_cols: int):
     if err != 0:
         raise RuntimeError(f"dia_spmv kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
-    entry = _SUFFIX[data.dtype] + ("_block" if ncol > 1 else "")
-    ENTRY_LAUNCHES[entry] = ENTRY_LAUNCHES.get(entry, 0) + 1
     return y

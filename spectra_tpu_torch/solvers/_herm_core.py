@@ -51,6 +51,7 @@ from spectra_tpu_torch.linalg.tridiag import (
 )
 from spectra_tpu_torch.ops.gemv import basis_apply_block
 from spectra_tpu_torch.util import dtypes
+from spectra_tpu_torch.util.profiling import span
 from spectra_tpu_torch.util.selection import SortRule, argsort
 
 
@@ -103,22 +104,24 @@ def _shift_sweep(H, ritz_val, k_new: int, ncv: int):
     first) to the tridiagonal H, accumulating the rotation Q."""
     # Unwanted = positions >= k_new in the selection order; sort them by
     # magnitude descending. Wanted positions sort last.
-    pos = torch.arange(ncv)
-    key = torch.where(pos >= k_new, ritz_val.abs(), -torch.inf)
-    shifts = ritz_val[torch.argsort(-key, stable=True)].tolist()
-    Q = torch.eye(ncv, dtype=torch.float64)
-    for mu in shifts[: ncv - k_new]:
-        d, e = H.diagonal(), H.diagonal(-1)
-        c, s, e_defl = tridiag_qr(d, e, mu)
-        Q = apply_yq(Q, c, s)
-        H = tridiag_to_dense(*tridiag_qtq(d, e_defl, c, s))
-    return H, Q
+    with span("irlm.shifts"):
+        pos = torch.arange(ncv)
+        key = torch.where(pos >= k_new, ritz_val.abs(), -torch.inf)
+        shifts = ritz_val[torch.argsort(-key, stable=True)].tolist()
+        Q = torch.eye(ncv, dtype=torch.float64)
+        for mu in shifts[: ncv - k_new]:
+            d, e = H.diagonal(), H.diagonal(-1)
+            c, s, e_defl = tridiag_qr(d, e, mu)
+            Q = apply_yq(Q, c, s)
+            H = tridiag_to_dense(*tridiag_qtq(d, e_defl, c, s))
+        return H, Q
 
 
 def _restart_compress(arnop, state, ritz_val, k_new: int, ncv: int):
     """Shift-and-compress half of the implicit restart."""
     H_new, Q = _shift_sweep(state.H, ritz_val, k_new, ncv)
-    return krylov.compress(arnop, state, Q, H_new, k_new)
+    with span("irlm.compress"):
+        return krylov.compress(arnop, state, Q, H_new, k_new)
 
 
 def _restart(arnop, state, ritz_val, k_new: int, ncv: int, mode: str):
@@ -148,11 +151,12 @@ def _restart_thick_compress(arnop, state, k_new: int, selection: SortRule):
     (``h_j = v_j^T A v_k = s_j`` analytically, DGKS-corrected): one
     operator application."""
     H = state.H
-    evals, Y = eigh_accurate(torch.triu(H) + torch.triu(H, 1).T)
-    ind = argsort(selection, evals)
-    Ym = Y[:, ind]
-    Ym[:, k_new:] = 0.0
-    V_new = basis_apply_block(state.V, Ym.to(state.V.device, state.V.dtype))
+    with span("irlm.shifts"):
+        evals, Y = eigh_accurate(torch.triu(H) + torch.triu(H, 1).T)
+        ind = argsort(selection, evals)
+        Ym = Y[:, ind]
+        Ym[:, k_new:] = 0.0
+        V_new = basis_apply_block(state.V, Ym.to(state.V.device, state.V.dtype))
     H_new = torch.zeros_like(H)
     H_new.diagonal()[:k_new] = evals[ind[:k_new]]
     state = state._replace(V=V_new, H=H_new, k=k_new)
@@ -175,12 +179,13 @@ class _LoopCarry(NamedTuple):
 
 def _extract(state, tol: float, restarts: int, nev: int,
              selection: SortRule, restart_method: str) -> _LoopCarry:
-    ritz_val, ritz_est, ritz_vec = _retrieve_ritzpair(
-        state.H, selection, nev, full_h=restart_method == "thick"
-    )
-    conv, nconv = _num_converged(
-        ritz_val, ritz_est, state.beta, tol, nev, state.V.dtype
-    )
+    with span("irlm.ritz"):
+        ritz_val, ritz_est, ritz_vec = _retrieve_ritzpair(
+            state.H, selection, nev, full_h=restart_method == "thick"
+        )
+        conv, nconv = _num_converged(
+            ritz_val, ritz_est, state.beta, tol, nev, state.V.dtype
+        )
     return _LoopCarry(
         state, ritz_val, ritz_est, ritz_vec, conv, nconv, restarts
     )
@@ -190,9 +195,10 @@ def irlm_start(arnop, v0, seed: int, tol: float, *, nev: int, ncv: int,
                selection: SortRule, mode: str,
                restart_method: str = "implicit") -> _LoopCarry:
     """Initial ncv-step factorization + first Ritz extraction."""
-    state = krylov.init(arnop, v0, ncv, seed, hermitian=True)
-    state = krylov.factorize_from(arnop, state, 1, mode)
-    return _extract(state, tol, 0, nev, selection, restart_method)
+    with span("irlm.start"):
+        state = krylov.init(arnop, v0, ncv, seed, hermitian=True)
+        state = krylov.factorize_from(arnop, state, 1, mode)
+        return _extract(state, tol, 0, nev, selection, restart_method)
 
 
 def irlm_restarts(arnop, carry: _LoopCarry, tol: float, restart_budget: int,
@@ -203,12 +209,13 @@ def irlm_restarts(arnop, carry: _LoopCarry, tol: float, restart_budget: int,
     chunked and single-shot runs are identical."""
     c = carry
     while c.nconv < nev and c.restarts < restart_budget:
-        k_new = _nev_adjusted(c.nconv, c.ritz_est, nev, ncv, arnop.dtype)
-        if restart_method == "thick":
-            state = _restart_thick(arnop, c.state, k_new, mode, selection)
-        else:
-            state = _restart(arnop, c.state, c.ritz_val, k_new, ncv, mode)
-        c = _extract(state, tol, c.restarts + 1, nev, selection, restart_method)
+        with span("irlm.restart"):
+            k_new = _nev_adjusted(c.nconv, c.ritz_est, nev, ncv, arnop.dtype)
+            if restart_method == "thick":
+                state = _restart_thick(arnop, c.state, k_new, mode, selection)
+            else:
+                state = _restart(arnop, c.state, c.ritz_val, k_new, ncv, mode)
+            c = _extract(state, tol, c.restarts + 1, nev, selection, restart_method)
     return c
 
 
@@ -217,10 +224,11 @@ def irlm_finalize(carry: _LoopCarry, transform_aux=None, *, nev: int,
     """Back-transform (``transform(values, transform_aux)``, e.g. the
     shift-invert ``1/nu + sigma``) and sort the first nev Ritz pairs by
     ``sorting``."""
-    vals = carry.ritz_val[:nev]
-    if transform is not None:
-        vals = transform(vals, transform_aux)
-    ind = argsort(sorting, vals)
+    with span("irlm.finalize"):
+        vals = carry.ritz_val[:nev]
+        if transform is not None:
+            vals = transform(vals, transform_aux)
+        ind = argsort(sorting, vals)
     return IRLMResult(
         values=vals[ind],
         vectors_small=carry.ritz_vec[:, ind],

@@ -48,6 +48,7 @@ import torch
 from spectra_tpu_torch.linalg.orthogonalization import qr_orthogonalisation
 from spectra_tpu_torch.linalg.ritz_pairs import eigh_host
 from spectra_tpu_torch.ops.gemv import col_norms
+from spectra_tpu_torch.util.profiling import span
 from spectra_tpu_torch.util.selection import SortRule, sort_target
 
 
@@ -79,17 +80,18 @@ def _gram(A, B, mesh):
 def _rayleigh_ritz(V, W, size: int, selection: SortRule, mesh=None):
     """Ritz values (host) and small vectors (host, (M2, M2)) of the
     active space, sorted wanted first with the pad last."""
-    M2 = V.shape[1]
-    P = torch.zeros((M2, M2), dtype=torch.float64)
-    P[:size, :size] = _gram(V[:, :size], W[:, :size], mesh).cpu()
-    P = 0.5 * (P + P.T)
-    j = torch.arange(M2, dtype=torch.float64)
-    pad = j >= size
-    cap = 2.0 * P.abs().max() + 1.0
-    w, s = eigh_host(P + torch.diag(torch.where(pad, cap * (1.0 + j), 0.0)))
-    key = torch.where(pad, torch.inf, sort_target(selection, w))
-    ind = torch.argsort(key, stable=True)
-    return w[ind], s[:, ind]
+    with span("jd.rayleigh_ritz"):
+        M2 = V.shape[1]
+        P = torch.zeros((M2, M2), dtype=torch.float64)
+        P[:size, :size] = _gram(V[:, :size], W[:, :size], mesh).cpu()
+        P = 0.5 * (P + P.T)
+        j = torch.arange(M2, dtype=torch.float64)
+        pad = j >= size
+        cap = 2.0 * P.abs().max() + 1.0
+        w, s = eigh_host(P + torch.diag(torch.where(pad, cap * (1.0 + j), 0.0)))
+        key = torch.where(pad, torch.inf, sort_target(selection, w))
+        ind = torch.argsort(key, stable=True)
+        return w[ind], s[:, ind]
 
 
 def _orth_extend(V, size: int, C, mesh=None):
@@ -97,13 +99,14 @@ def _orth_extend(V, size: int, C, mesh=None):
     then QR), written at ``[size, size + c)`` (at ``M2 - c`` where that
     runs past the buffer, as ``dynamic_update_slice`` clamps). Returns
     the contiguous block."""
-    Vs = V[:, :size]
-    for _ in range(2):  # reference: Orthogonalization twice_is_enough
-        C = C - Vs @ _gram(Vs, C, mesh)
-        C = qr_orthogonalisation(C, mesh)
-    start = min(size, V.shape[1] - C.shape[1])
-    V[:, start : start + C.shape[1]] = C
-    return C
+    with span("jd.orthogonalize"):
+        Vs = V[:, :size]
+        for _ in range(2):  # reference: Orthogonalization twice_is_enough
+            C = C - Vs @ _gram(Vs, C, mesh)
+            C = qr_orthogonalisation(C, mesh)
+        start = min(size, V.shape[1] - C.shape[1])
+        V[:, start : start + C.shape[1]] = C
+        return C
 
 
 def jd_compute(op, V0, aux, maxit: int, tol: float, *, max_space: int,
@@ -119,7 +122,8 @@ def jd_compute(op, V0, aux, maxit: int, tol: float, *, max_space: int,
     V = torch.zeros((n, M2), dtype=dtype, device=dev)
     W = torch.zeros((n, M2), dtype=dtype, device=dev)
     V[:, :i0] = V0
-    W[:, :i0] = op.perform_op(V0)
+    with span("jd.apply"):
+        W[:, :i0] = op.perform_op(V0)
     vals, small = _rayleigh_ritz(V, W, i0, selection, mesh)
     # Stagnation patience: one full growth schedule (a restart can
     # unlock progress) plus slack.
@@ -134,51 +138,56 @@ def jd_compute(op, V0, aux, maxit: int, tol: float, *, max_space: int,
     best_conv = torch.zeros(nev, dtype=torch.bool)
     best_resmax = np.inf
     while status == 0:
-        if size > max_space:
-            lead = small[:rr_size, :i0].to(dev, dtype)
-            Vc, Wc = V[:, :rr_size] @ lead, W[:, :rr_size] @ lead
-            V.zero_()
-            W.zero_()
-            V[:, :i0], W[:, :i0] = Vc, Wc
-            size, block = i0, None
-        elif it > 0:
-            W[:, size - c : size] = op.perform_op(block)
-            nops += c
+        with span("jd.iteration"):
+            if size > max_space:
+                with span("jd.collapse"):
+                    lead = small[:rr_size, :i0].to(dev, dtype)
+                    Vc, Wc = V[:, :rr_size] @ lead, W[:, :rr_size] @ lead
+                    V.zero_()
+                    W.zero_()
+                    V[:, :i0], W[:, :i0] = Vc, Wc
+                    size, block = i0, None
+            elif it > 0:
+                with span("jd.apply"):
+                    W[:, size - c : size] = op.perform_op(block)
+                nops += c
 
-        vals, small = _rayleigh_ritz(V, W, size, selection, mesh)
-        Vs, Ws = V[:, :size], W[:, :size]
-        vals_d = vals.to(dev, dtype)
-        lead = small[:size, :nev].to(dev, dtype)
-        ritz = Vs @ lead
-        resid = Ws @ lead - ritz * vals_d[None, :nev]
-        norms = col_norms(resid, mesh).cpu()
-        conv = norms < tol
-        finite = bool(torch.isfinite(vals[:size]).all())
-        it += 1
-        resmax = float(norms.max())
-        all_conv = bool(conv.all())
-        take = finite and (resmax < best_resmax or all_conv)
-        bad = 0 if finite and resmax < 0.9 * best_resmax else bad + 1
-        if not finite:
-            status = 3
-        elif all_conv:
-            status = 1
-        elif it >= maxit or bad >= patience:
-            status = 2
-        rr_size = size
-        if take:
-            best_vals, best_vecs, best_res = vals[:nev], ritz, resid
-            best_conv, best_resmax = conv, resmax
-        if status == 0:
-            if c <= nev:
-                ritz_c, resid_c = ritz[:, :c], resid[:, :c]
-            else:
-                lead_c = small[:size, :c].to(dev, dtype)
-                ritz_c = Vs @ lead_c
-                resid_c = Ws @ lead_c - ritz_c * vals_d[None, :c]
-            C = correction_fn(vals_d[:c], resid_c, aux).to(dtype)
-            block = _orth_extend(V, size, C, mesh)
-            size += c
+            vals, small = _rayleigh_ritz(V, W, size, selection, mesh)
+            with span("jd.residual"):
+                Vs, Ws = V[:, :size], W[:, :size]
+                vals_d = vals.to(dev, dtype)
+                lead = small[:size, :nev].to(dev, dtype)
+                ritz = Vs @ lead
+                resid = Ws @ lead - ritz * vals_d[None, :nev]
+                norms = col_norms(resid, mesh).cpu()
+                conv = norms < tol
+                finite = bool(torch.isfinite(vals[:size]).all())
+                it += 1
+                resmax = float(norms.max())
+                all_conv = bool(conv.all())
+                take = finite and (resmax < best_resmax or all_conv)
+                bad = 0 if finite and resmax < 0.9 * best_resmax else bad + 1
+                if not finite:
+                    status = 3
+                elif all_conv:
+                    status = 1
+                elif it >= maxit or bad >= patience:
+                    status = 2
+                rr_size = size
+                if take:
+                    best_vals, best_vecs, best_res = vals[:nev], ritz, resid
+                    best_conv, best_resmax = conv, resmax
+            if status == 0:
+                with span("jd.correction"):
+                    if c <= nev:
+                        ritz_c, resid_c = ritz[:, :c], resid[:, :c]
+                    else:
+                        lead_c = small[:size, :c].to(dev, dtype)
+                        ritz_c = Vs @ lead_c
+                        resid_c = Ws @ lead_c - ritz_c * vals_d[None, :c]
+                    C = correction_fn(vals_d[:c], resid_c, aux).to(dtype)
+                block = _orth_extend(V, size, C, mesh)
+                size += c
 
     # The best snapshot, not the last iterate: the same when converged,
     # better when the loop stopped on maxit or stagnation.

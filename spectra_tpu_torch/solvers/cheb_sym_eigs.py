@@ -14,6 +14,7 @@ from spectra_tpu_torch.matop.chebyshev import (
     estimate_spectrum_bounds,
 )
 from spectra_tpu_torch.solvers.base import HermEigsBase
+from spectra_tpu_torch.util.profiling import span
 from spectra_tpu_torch.util.selection import SortRule, argsort
 
 
@@ -87,8 +88,9 @@ class ChebSymEigsSolver(HermEigsBase):
         res = self._result
         if res is None:
             return
-        vecs = res.V.mT @ res.vectors_small.to(res.V.device, res.V.dtype)
-        lam = self._filtered.rayleigh_quotients(vecs).cpu().double()
+        with span("cheb.rayleigh"):
+            vecs = res.V.mT @ res.vectors_small.to(res.V.device, res.V.dtype)
+            lam = self._filtered.rayleigh_quotients(vecs).cpu().double()
         ind = argsort(sorting, lam)
         self._result = res._replace(
             values=lam[ind],

@@ -27,6 +27,7 @@ import torch
 from spectra_tpu_torch.linalg import ritz_pairs as rp
 from spectra_tpu_torch.linalg.search_space import SearchSpace
 from spectra_tpu_torch.util.compinfo import CompInfo
+from spectra_tpu_torch.util.profiling import span
 from spectra_tpu_torch.util.selection import SortRule
 
 _STATUS = {1: CompInfo.Successful, 2: CompInfo.NotConverging, 3: CompInfo.NumericalIssue}
@@ -172,23 +173,33 @@ class JDSymEigsBase:
         self._niter = 0
         conv_flags = torch.zeros(self._nev, dtype=torch.bool)
         for it in range(maxit):
-            self._niter = it + 1
-            if ss.size > self._max_search_space_size:
-                ss.restart(self._ritz_pairs, self._initial_search_space_size)
-            ss.update_operator_basis_product(self._op)
-            self._nops = ss.nops
-            pairs = rp.compute_eigen_pairs(ss.V, ss.W, mesh)
-            if not bool(torch.isfinite(pairs.values).all()):
-                self._info = CompInfo.NumericalIssue
-                break
-            pairs = rp.sort(pairs, selection)
-            self._ritz_pairs = pairs
-            conv_flags, converged = rp.convergence(pairs, tol, self._nev, mesh)
-            if converged:
-                self._info = CompInfo.Successful
-                break
-            if it == maxit - 1:
-                self._info = CompInfo.NotConverging
-                break
-            ss.extend_basis(self.calculate_correction_vector())
+            with span("jd.iteration"):
+                self._niter = it + 1
+                if ss.size > self._max_search_space_size:
+                    with span("jd.collapse"):
+                        ss.restart(self._ritz_pairs, self._initial_search_space_size)
+                with span("jd.apply"):
+                    ss.update_operator_basis_product(self._op)
+                self._nops = ss.nops
+                with span("jd.rayleigh_ritz"):
+                    pairs = rp.compute_eigen_pairs(ss.V, ss.W, mesh)
+                    finite = bool(torch.isfinite(pairs.values).all())
+                    if finite:
+                        pairs = rp.sort(pairs, selection)
+                if not finite:
+                    self._info = CompInfo.NumericalIssue
+                    break
+                self._ritz_pairs = pairs
+                with span("jd.residual"):
+                    conv_flags, converged = rp.convergence(pairs, tol, self._nev, mesh)
+                if converged:
+                    self._info = CompInfo.Successful
+                    break
+                if it == maxit - 1:
+                    self._info = CompInfo.NotConverging
+                    break
+                with span("jd.correction"):
+                    corrections = self.calculate_correction_vector()
+                with span("jd.orthogonalize"):
+                    ss.extend_basis(corrections)
         return int(conv_flags.sum())

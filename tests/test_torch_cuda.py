@@ -608,8 +608,26 @@ def test_lobpcg_and_partial_svd_on_card(cuda):
     assert p.matrix_U(4).device.type == "cuda"
 
 
+def count_entries(monkeypatch, mod):
+    """The launches of ``mod`` (``ops.dia_spmv`` or ``ops.dia_ds``) by
+    entry from now on: every launch looks its kernel up once through
+    ``mod._kernel``, whose arguments name the entry."""
+    counts, lookup = {}, mod._kernel
+
+    def counted(*key):
+        if mod is dmod:
+            name = dmod._SUFFIX[key[0]] + ("_block" if key[1] else "")
+        else:
+            name = key[0].rsplit("_", 1)[1]
+        counts[name] = counts.get(name, 0) + 1
+        return lookup(*key)
+
+    monkeypatch.setattr(mod, "_kernel", counted)
+    return counts
+
+
 @pytest.mark.cuda
-def test_mixed_precision_on_card(cuda):
+def test_mixed_precision_on_card(cuda, monkeypatch):
     """``set_precision("mixed")`` on a small DIA matrix on the card: the
     twin's SpMVs are K1's f32 vector launches, one a twin operation; each
     refinement round is two f64 block launches; the values match the
@@ -629,10 +647,11 @@ def test_mixed_precision_on_card(cuda):
         s.set_precision(precision)
         s.init()
         dmod.LAUNCHES = 0
-        dmod.ENTRY_LAUNCHES.clear()
+        entries = count_entries(monkeypatch, dmod)
         nconv = s.compute(stt.SortRule.LargestAlge, maxit=500, tol=tol)
         torch.cuda.synchronize()
-        return s, nconv, dict(dmod.ENTRY_LAUNCHES)
+        monkeypatch.undo()
+        return s, nconv, entries
 
     s, nconv, launches = run("cuda", "mixed", 1e-6)
     assert nconv == k and s.info() == stt.CompInfo.Successful
@@ -664,7 +683,7 @@ def nccl_one_rank(cuda):
 
 
 @pytest.mark.cuda
-def test_sharded_products_one_rank_nccl(nccl_one_rank):
+def test_sharded_products_one_rank_nccl(nccl_one_rank, monkeypatch):
     """The multi-device layer on one rank over NCCL: each sharded
     operator's product (vector and block) equals the unsharded product
     on the card bitwise (the same kernel, with zero halos), and the hi/lo
@@ -695,11 +714,11 @@ def test_sharded_products_one_rank_nccl(nccl_one_rank):
     stencil = ShardedStencilMatProd.create(host_dia(A), mesh)
     assert torch.equal(stencil.perform_op(x), dia.matvec(x))
     assert torch.equal(stencil.perform_op(X), dia.matmat(X))
-    before = dict(dsmod.ENTRY_LAUNCHES)
     op = sharded_stencil_op(host_dia(A), mesh, hilo=True)
+    entries = count_entries(monkeypatch, dsmod)
     y = op.perform_op(x)
     torch.cuda.synchronize()
-    assert dsmod.ENTRY_LAUNCHES.get("ext", 0) == before.get("ext", 0) + 1
+    assert entries == {"ext": 1}
     assert torch.equal(y, hilo.matvec(x))
     assert torch.equal(op.perform_op(X), hilo.matmat(X))
     ell = ShardedEllMatProd.create(A, mesh)

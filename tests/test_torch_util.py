@@ -103,27 +103,6 @@ def test_version_constants_match_jax():
         stt.SPECTRA_TPU_PATCH_VERSION)
 
 
-def test_phase_timer_accumulates_as_jax():
-    from spectra_tpu.util.profiling import PhaseTimer as JTimer
-    from spectra_tpu_torch.util.profiling import PhaseTimer
-
-    for cls in (PhaseTimer, JTimer):
-        t = cls()
-        for _ in range(3):
-            with t("spmv"):
-                pass
-        with pytest.raises(KeyError):
-            with t("solve"):
-                raise KeyError("inside")
-        summary = t.summary()
-        assert {k: v["calls"] for k, v in summary.items()} == {"spmv": 3, "solve": 1}
-        assert all(v["total_s"] >= 0.0 for v in summary.values())
-        summary["spmv"]["calls"] = 99  # a copy
-        assert t.summary()["spmv"]["calls"] == 3
-        t.reset()
-        assert t.summary() == {}
-
-
 def test_trace_writes_a_chrome_trace(tmp_path):
     import json
 
