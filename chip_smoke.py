@@ -227,6 +227,12 @@ REPLACES = {
         "scripts/tpu_dia_f32_ceiling.py:33",
         "scripts/tpu_dia_f32_ceiling.py::dia_spmv_f32 (ported by K1's f32 kernel)",
     ),
+    "tsqr": (
+        "none",
+        "no Pallas kernel: the JAX package leaves this QR to XLA "
+        "(spectra_tpu/linalg/orthogonalization.py::qr_orthogonalisation); on the card "
+        "it takes the place of torch.linalg.qr (cuSOLVER geqr2/larft)",
+    ),
 }
 SOURCES = {
     "dia_spmv": "dia_spmv.cu",
@@ -236,6 +242,7 @@ SOURCES = {
     "dia_noshift": "dia_variants.cu",
     "dia_roll2d": "dia_variants.cu",
     "dia_spmv_f32": "dia_spmv.cu",
+    "tsqr": "tsqr.cu",
 }
 ROLL2D_ROWS = (32, 64, 128, 256)
 #: P4's rows in the comparison with a parent checkout.
@@ -2047,7 +2054,12 @@ def solve_config5b(torch, stt, dmod, pf, n, label):
     :class:`CountingOp`. Checks 10/10 ``Successful``, every residual
     2-norm within tol, ``||U^T U - I||_max <= 1e-10``, K1's launches equal
     to the operator's calls and its columns equal to ``num_operations()``.
-    Returns (values, K1 launches, the operator, the walls)."""
+    Every QR of the correction blocks must be the TSQR kernel's.
+    Returns (values, K1 launches, the operator, the walls and the TSQR
+    kernel's QRs)."""
+    from spectra_tpu_torch.linalg import orthogonalization as porth
+    from spectra_tpu_torch.ops import tsqr
+
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     A, d = config5b_matrix(n)
@@ -2061,12 +2073,13 @@ def solve_config5b(torch, stt, dmod, pf, n, label):
     counted = CountingOp(op)
     torch.cuda.synchronize()
     dmod.LAUNCHES = 0
+    tsqr.LAUNCHES = porth.LIBRARY_QRS = 0
     t0 = time.perf_counter()
     e = stt.DavidsonSymEigsSolver(counted, nev=10)
     nconv = e.compute(stt.SortRule.LargestAlge, maxit=150, tol=tol)
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
-    launches = dmod.LAUNCHES
+    launches, qrs, library_qrs = dmod.LAUNCHES, tsqr.LAUNCHES, porth.LIBRARY_QRS
     vals = e.eigenvalues()
     U = e.eigenvectors()
     norms = torch.linalg.vector_norm(
@@ -2078,7 +2091,8 @@ def solve_config5b(torch, stt, dmod, pf, n, label):
          info=e.info().name, niter=e.num_iterations(),
          jax_niter_250k_tpu=JAX_DAVIDSON_250K_NITER if n == 250_000 else None,
          operations=e.num_operations(), operator_calls=counted.calls,
-         operator_columns=counted.columns, k1_launches=launches, build_s=build_s,
+         operator_columns=counted.columns, k1_launches=launches,
+         tsqr_qrs=qrs, library_qrs=library_qrs, build_s=build_s,
          solve_s=solve_s, tol=tol, max_residual=float(norms.max()),
          orthogonality=orth, format=type(m).__name__, offsets=list(m.offsets),
          eigenvalues=np.sort(vals)[::-1].tolist())
@@ -2091,7 +2105,12 @@ def solve_config5b(torch, stt, dmod, pf, n, label):
         raise RuntimeError(f"config #5b at n={n}: K1 {launches} launches, "
                            f"{counted.calls} calls, {counted.columns} columns, "
                            f"{e.num_operations()} operations")
-    return vals, launches, op, dict(build_s=build_s, solve_s=solve_s)
+    # two QRs an iteration that extends the space (all but the last), each
+    # the TSQR kernel's, none the library's
+    if qrs != 2 * (e.num_iterations() - 1) or library_qrs != 0:
+        raise RuntimeError(f"config #5b at n={n}: {qrs} TSQR and {library_qrs} library QRs "
+                           f"in {e.num_iterations()} iterations")
+    return vals, launches, op, dict(build_s=build_s, solve_s=solve_s, tsqr_qrs=qrs)
 
 
 def run_config5b(torch, stt, dmod, pf):
@@ -2101,14 +2120,15 @@ def run_config5b(torch, stt, dmod, pf):
     (``bench.py``'s CPU size): the port on the card against host
     ``scipy.sparse.linalg.eigsh(A, k=10, which="LA", tol=1e-9,
     v0=SimpleRandom(0))``, the values within 1e-9 ||A||, as
-    ``bench.py:404-427`` compares them. Returns the n = 10^6 operator and
-    K1's launches by size."""
+    ``bench.py:404-427`` compares them. Returns the n = 10^6 operator,
+    K1's launches by size and the TSQR kernel's QRs at n = 10^6."""
     from scipy.sparse.linalg import eigsh
 
     from spectra_tpu_torch.util.rng import SimpleRandom
 
     launches = {}
-    _, launches[1_000_000], op_1m, _ = solve_config5b(torch, stt, dmod, pf, 1_000_000, "1M")
+    _, launches[1_000_000], op_1m, walls = solve_config5b(torch, stt, dmod, pf, 1_000_000, "1M")
+    qrs_1m = walls["tsqr_qrs"]
     _, launches[250_000], _, _ = solve_config5b(torch, stt, dmod, pf, 250_000, "250k")
     n = 100_000
     vals, launches[n], _, walls = solve_config5b(torch, stt, dmod, pf, n, "100k")
@@ -2122,7 +2142,7 @@ def run_config5b(torch, stt, dmod, pf):
          eval_abs_err_vs_arpack=err, eval_err_vs_arpack_over_normA=err / float(d.max()))
     if err > 1e-9 * float(d.max()):
         raise RuntimeError(f"config #5b at n={n} is {err} from ARPACK")
-    return op_1m, launches
+    return op_1m, launches, qrs_1m
 
 
 def profile_config5b(torch, stt, op):
@@ -3819,6 +3839,81 @@ def run_multidevice_2rank(torch, cheb_one):
     return dict(res, composed=composed)
 
 
+#: The TSQR kernel's checks: (n, c, dtype, kind), Gaussian blocks unless
+#: ``kind`` says otherwise; the first two are also timed.
+TSQR_CASES = (
+    (1_000_000, 10, "float64", "gauss"),
+    (1_000_000, 20, "float64", "gauss"),
+    (999_983, 7, "float64", "gauss"),
+    (5000, 1, "float64", "gauss"),
+    (100_000, 32, "float64", "gauss"),
+    (5000, 10, "float32", "gauss"),
+    (200_000, 10, "float64", "cond_1e12"),
+    (200_000, 10, "float64", "zero_column"),
+)
+
+
+def phase_tsqr(torch, rates):
+    """The TSQR kernel (``ops/tsqr.py``) against its plain version,
+    ``torch.linalg.qr`` with the sign fix, at ``TSQR_CASES``:
+    orthonormality, A = QR, R upper triangular with a non-negative
+    diagonal, and on Gaussian blocks Q's distance from the library's
+    (f64 limits 1e-13, 1e-14 and 1e-12; f32 1e-5), ``kernel_vs_plain``
+    records; then timed cold at (10^6, 10) and (10^6, 20) f64 beside its
+    bound (A read and Q written once) and ``torch.linalg.qr``. Returns
+    the timings, the largest distance from the plain Q and the launches."""
+    from spectra_tpu_torch.ops import tsqr
+
+    bandwidth, f64_rate, _ = rates
+    worst, out = 0.0, {}
+    before = tsqr.LAUNCHES
+    for n, c, dtype_name, kind in TSQR_CASES:
+        dtype = getattr(torch, dtype_name)
+        g = torch.Generator(device="cuda").manual_seed(n + c)
+        A = torch.randn((n, c), dtype=dtype, device="cuda", generator=g)
+        if kind == "cond_1e12":
+            U, _ = torch.linalg.qr(A)
+            V, _ = torch.linalg.qr(torch.randn((c, c), dtype=dtype, device="cuda", generator=g))
+            A = ((U * torch.logspace(0, -12, c, dtype=dtype, device="cuda")[None, :]) @ V.mT)
+            A = A.contiguous()
+        elif kind == "zero_column":
+            A[:, c // 2] = 0
+        Q, R = tsqr.tsqr(A)
+        torch.cuda.synchronize()
+        eye = torch.eye(c, dtype=dtype, device="cuda")
+        rec = dict(
+            orthogonality=float((Q.mT @ Q - eye).abs().max()),
+            residual=float(torch.linalg.norm(A - Q @ R) / torch.linalg.norm(A)),
+            upper=bool(torch.equal(R, torch.triu(R))),
+            diagonal_nonneg=bool((torch.diagonal(R) >= 0).all()),
+        )
+        f64 = dtype == torch.float64
+        ok = (rec["orthogonality"] <= (1e-13 if f64 else 1e-5)
+              and rec["residual"] <= (1e-14 if f64 else 1e-5)
+              and rec["upper"] and rec["diagonal_nonneg"])
+        if kind == "gauss":
+            rec["max_abs_err"] = float((Q - tsqr.tsqr_plain(A)[0]).abs().max())
+            ok = ok and rec["max_abs_err"] <= (1e-12 if f64 else 1e-5)
+            worst = max(worst, rec["max_abs_err"])
+        emit(phase="kernel_vs_plain", kernel="tsqr", case=f"{n}x{c}_{dtype_name}_{kind}",
+             ok=ok, **rec)
+        if not ok:
+            raise RuntimeError(f"the TSQR kernel at ({n}, {c}) {dtype_name} {kind}: {rec}")
+    launches = tsqr.LAUNCHES - before
+    timer = Timer(torch)
+    for n, c, _, _ in TSQR_CASES[:2]:
+        A = torch.randn((n, c), dtype=torch.float64, device="cuda")
+        t = timed_entry(timer, lambda: tsqr.tsqr(A), lambda: tsqr.tsqr_plain(A),
+                        lambda: torch.linalg.qr(A), 2 * n * c * 8, 4 * n * c * c,
+                        f64_rate, bandwidth)
+        t.update(kernel="tsqr", n=n, c=c, dtype="float64", us=t["ms"] * 1e3,
+                 bound_us=t["bound_ms"] * 1e3, library_us=t["library_ms"] * 1e3,
+                 enqueue_us=enqueue_us(torch, lambda: tsqr.tsqr(A)))
+        emit(phase="kernel_timing", **t)
+        out[f"{n}x{c}"] = t
+    return out, worst, launches
+
+
 def kernel_entry(name, launches, max_abs_err, t, shape, **extra):
     replaces, function = REPLACES[name]
     return dict(
@@ -3919,11 +4014,14 @@ def main(argv):
     phase("gen_dense_n1000", run_gen_dense, torch, stt)
     phase("gen_shift_modes", run_gen_shift_modes, torch, stt, dmod)
     phase("hermitian", run_hermitian, torch, stt)
-    op5b, k1_config5b = phase("config5b_davidson", run_config5b, torch, stt, dmod, pf)
+    op5b, k1_config5b, tsqr_config5b = phase(
+        "config5b_davidson", run_config5b, torch, stt, dmod, pf
+    )
     phase("config5b_profile", profile_config5b, torch, stt, op5b)
     del op5b
     phase("contrib", run_contrib, torch, stt, dmod)
     k1_blocks = phase("k1_block_timing", phase_k1_blocks, torch, dmod, pf, rates, k1_floor)
+    tsqr_t, tsqr_err, tsqr_launches = phase("tsqr", phase_tsqr, torch, rates)
     k1_frontends = phase("frontends", run_frontends, torch, stt, dmod, pmg, pf)
     k1_mixed = phase("mixed_precision", run_mixed_precision, torch, stt, dmod, pf)
     k1_nonfinite = phase("nonfinite", run_nonfinite, torch, stt, dmod, pf)
@@ -4034,6 +4132,13 @@ def main(argv):
             f"d=7, n={G_NORTH ** 3}, float32 (g=243 planes)",
             k2_mode_b_ms=p5_t["k2_mode_b_ms"],
             launches_path="the f32_ceiling phase (K1's f32 kernel as the probe)",
+        ),
+        kernel_entry(
+            "tsqr", tsqr_config5b, tsqr_err, tsqr_t["1000000x10"],
+            "n=10^6, c=10, float64 (config #5b's correction blocks)",
+            c20=tsqr_t["1000000x20"], launches_check=tsqr_launches,
+            launches_path="config5b_davidson at n=10^6: two a Davidson iteration that "
+                          "extends the space; launches_check: the tsqr phase's checks",
         ),
     ])
     emit(phase_walls=walls, total_s=sum(walls.values()))

@@ -5,13 +5,23 @@ include/Spectra/LinAlg/Orthogonalization.h:46-137): QR, Gram-Schmidt
 (classic and modified), the projection of new columns against an
 orthonormal block, the ``JensWehner`` method (that projection, then a
 QR of the new block) and ``twice_is_enough``, which applies it twice.
-Each takes a tensor (n, k) and works on its device; QR is
-``torch.linalg.qr`` (cuSOLVER on the card, LAPACK on the CPU). The
-Gram-Schmidt variants loop over the columns on the host, as the JAX
-package's ``fori_loop`` does.
+Each takes a tensor (n, k) and works on its device. The QR of a real
+f32 or f64 block on the card with 1 to ``ops.tsqr.MAX_COLS`` columns
+and at least as many rows is the hand-written tall-skinny QR
+(:func:`spectra_tpu_torch.ops.tsqr.tsqr`);
+every other QR is ``torch.linalg.qr`` (cuSOLVER on the card, LAPACK on
+the CPU) with the same sign fix, and ``LIBRARY_QRS`` counts those on
+the card. The Gram-Schmidt variants loop over the columns on the host,
+as the JAX package's ``fori_loop`` does.
 """
 
 import torch
+
+from spectra_tpu_torch.ops import tsqr
+
+#: QRs of CUDA tensors that went to ``torch.linalg.qr`` since import (or
+#: since a caller reset it to 0).
+LIBRARY_QRS = 0
 
 
 def qr_orthogonalisation(A, mesh=None):
@@ -22,12 +32,14 @@ def qr_orthogonalisation(A, mesh=None):
     runs replicated on every rank and each keeps its rows: what GSPMD
     does with a QR of a row-sharded array, with the single-device
     rounding."""
+    global LIBRARY_QRS
     if mesh is not None:
         return mesh.local_rows(qr_orthogonalisation(mesh.all_gather(A))).contiguous()
-    Q, R = torch.linalg.qr(A)
-    d = torch.diagonal(R)
-    signs = torch.sgn(torch.where(d == 0, torch.ones_like(d), d))
-    return (Q * signs.conj()[None, :]).contiguous()
+    if tsqr.routes_to_kernel(A.device.type, A.dtype, A.shape):
+        return tsqr.tsqr(A.contiguous())[0]
+    if A.device.type == "cuda":
+        LIBRARY_QRS += 1
+    return tsqr.tsqr_plain(A)[0]
 
 
 def gram_schmidt_orthogonalisation(A):

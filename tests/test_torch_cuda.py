@@ -14,6 +14,7 @@ from spectra_tpu_torch.ops import dia_ds as dsmod
 from spectra_tpu_torch.ops import dia_spmv as dmod
 from spectra_tpu_torch.ops import dia_variants as dv
 from spectra_tpu_torch.ops import stream
+from spectra_tpu_torch.ops import tsqr
 from spectra_tpu_torch.sparse import formats as pf
 
 
@@ -555,23 +556,38 @@ def test_davidson_on_dia_operator_on_card(cuda, monkeypatch, route):
     """Config #5b's matrix at n = 5,000 on both JD routes on the card:
     10/10, the CPU's iteration count, values within 1e-9 ||A||, and on
     the fixed-buffer route one K1 launch per operator call, the blocks
-    of 20 and then 10 columns."""
+    of 20 and then 10 columns; on both routes every QR the route issues
+    (two an iteration that extends the space) is the TSQR kernel's and
+    none goes to the library."""
     import spectra_tpu_torch as stt
+    from spectra_tpu_torch.linalg import orthogonalization as porth
+    from spectra_tpu_torch.solvers import _jd_core as jd_core
 
     monkeypatch.setenv("SPECTRA_TPU_JD_DRIVER", route)
     n = 5000
     d = np.linspace(1.0, 100.0, n) ** 2
     A = sps.diags([np.full(n, 0.25), np.full(n, 0.5), d, np.full(n, 0.5),
                    np.full(n, 0.25)], [-1000, -1, 0, 1, 1000], shape=(n, n), format="csr")
+    issued = [0]  # QRs the route asks for, wherever it asks
+    qr = porth.qr_orthogonalisation
+
+    def counted(*args, **kwargs):
+        issued[0] += 1
+        return qr(*args, **kwargs)
+
+    monkeypatch.setattr(porth, "qr_orthogonalisation", counted)
+    monkeypatch.setattr(jd_core, "qr_orthogonalisation", counted)
     out = []
     for device in ("cuda", "cpu"):
         op = stt.SparseSymMatProd.from_full(A, device=device)
         before = dmod.LAUNCHES
+        qrs, library, issued[0] = tsqr.LAUNCHES, porth.LIBRARY_QRS, 0
         e = stt.DavidsonSymEigsSolver(op, nev=10)
         nconv = e.compute(stt.SortRule.LargestAlge, maxit=150, tol=1e-9 * d.max())
         torch.cuda.synchronize()
-        out.append((e, nconv, dmod.LAUNCHES - before))
-    (card, n_card, launches), (cpu, n_cpu, _) = out
+        out.append((e, nconv, dmod.LAUNCHES - before, tsqr.LAUNCHES - qrs,
+                    porth.LIBRARY_QRS - library, issued[0]))
+    (card, n_card, launches, kernel_qrs, library_qrs, issued), (cpu, n_cpu, *_) = out
     assert n_card == n_cpu == 10 and card.info() == stt.CompInfo.Successful
     assert card.num_iterations() == cpu.num_iterations()
     assert card.num_operations() == cpu.num_operations()
@@ -581,6 +597,9 @@ def test_davidson_on_dia_operator_on_card(cuda, monkeypatch, route):
         assert launches == 1 + (card.num_operations() - 20) // 10
     else:
         assert launches >= 1
+    # every QR of the correction blocks is the kernel's, two an extension
+    assert kernel_qrs == issued == 2 * (card.num_iterations() - 1)
+    assert library_qrs == 0
 
 
 @pytest.mark.cuda
@@ -728,3 +747,68 @@ def test_sharded_products_one_rank_nccl(nccl_one_rank, monkeypatch):
     # under the hi/lo threshold, so f64 DIA)
     row_op, xs = shard_problem(stt.SparseSymMatProd.from_full(A, device="cuda"), x, mesh)
     assert torch.equal(row_op.perform_op(xs), dia.matvec(x))
+
+
+def _tsqr_checks(A, Q, R):
+    """``(max |Q^T Q - I|, ||A - QR||_F / ||A||_F)``, with R upper
+    triangular and its diagonal non-negative asserted."""
+    assert torch.equal(R, torch.triu(R))
+    assert bool((torch.diagonal(R) >= 0).all())
+    eye = torch.eye(A.shape[1], dtype=A.dtype, device=A.device)
+    return (float((Q.mT @ Q - eye).abs().max()),
+            float(torch.linalg.norm(A - Q @ R) / torch.linalg.norm(A)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "n, c, dtype",
+    [
+        (10**6, 10, torch.float64),
+        (10**6, 20, torch.float64),
+        (999_983, 7, torch.float64),  # a ragged last panel
+        (5000, 1, torch.float64),
+        (100_000, tsqr.MAX_COLS, torch.float64),
+        (5000, 10, torch.float32),
+        (20_000, 17, torch.float32),  # the 32-column bucket in f32
+    ],
+)
+def test_tsqr_matches_library_on_card(cuda, n, c, dtype):
+    """The TSQR kernel on Gaussian blocks against ``torch.linalg.qr`` with
+    the sign fix (:func:`tsqr_plain`): orthonormal Q, A = QR, R upper
+    triangular with a non-negative diagonal, Q within 1e-12 of the
+    library's (f64); in f32 every limit is 1e-5."""
+    g = torch.Generator(device="cuda").manual_seed(n + c)
+    A = torch.randn((n, c), dtype=dtype, device="cuda", generator=g)
+    assert tsqr.routes_to_kernel(A.device.type, A.dtype, A.shape)
+    before = tsqr.LAUNCHES
+    Q, R = tsqr.tsqr(A)
+    torch.cuda.synchronize()
+    assert tsqr.LAUNCHES == before + 1
+    assert Q.shape == A.shape and Q.is_contiguous() and R.shape == (c, c)
+    orth, resid = _tsqr_checks(A, Q, R)
+    Ql, _ = tsqr.tsqr_plain(A)
+    near = float((Q - Ql).abs().max())
+    f64 = dtype == torch.float64
+    assert orth <= (1e-13 if f64 else 1e-5)
+    assert resid <= (1e-14 if f64 else 1e-5)
+    assert near <= (1e-12 if f64 else 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["cond_1e12", "zero_column"])
+def test_tsqr_ill_conditioned_blocks_on_card(cuda, kind):
+    """A block of condition number 1e12 and one with a zero column: Q
+    orthonormal and A = QR (Q itself is not determined to compare)."""
+    n, c = 200_000, 10
+    g = torch.Generator(device="cuda").manual_seed(7)
+    A = torch.randn((n, c), dtype=torch.float64, device="cuda", generator=g)
+    if kind == "cond_1e12":
+        U, _ = torch.linalg.qr(A)
+        V, _ = torch.linalg.qr(torch.randn((c, c), dtype=torch.float64, device="cuda", generator=g))
+        s = torch.logspace(0, -12, c, dtype=torch.float64, device="cuda")
+        A = ((U * s[None, :]) @ V.mT).contiguous()
+    else:
+        A[:, 4] = 0
+    Q, R = tsqr.tsqr(A)
+    orth, resid = _tsqr_checks(A, Q, R)
+    assert orth <= 1e-13 and resid <= 1e-14
