@@ -14,8 +14,12 @@ it has closed, the peak of device memory is read, the operators are
 freed, and every answer is held against the reference.
 
 A traced run profiles its first :data:`TRACED_REQUESTS` requests
-(``tracing``) and reports the per-layer metrics instead of the
-end-to-end ones.
+(``tracing``), reduces the profile once to device intervals and the
+benchmark's spans (``tracing.reduce``) and once to the program's spans
+and the device work each issued (``spans.reduce``), hands both to the
+per-layer metrics' readers in a :class:`Run`, and reports those
+metrics instead of the end-to-end ones, with the card's idle gaps named
+by the innermost span open in each (``spans.name_gaps``).
 """
 
 import dataclasses
@@ -27,7 +31,7 @@ import traceback
 import numpy as np
 import torch
 
-from eigbench import manifest, tracing, traffic, yardstick
+from eigbench import manifest, spans, tracing, traffic, yardstick
 from eigbench.reference.compare import fails
 
 #: Requests profiled in a traced run: two whole solves.
@@ -42,6 +46,7 @@ class Run:
     traced: list  # the profiled ones
     trace: tracing.Trace | None
     rates: tuple | None  # yardstick.card_rates of the card
+    program: spans.ProgramTrace | None = None  # the program's spans in the trace
 
     def mean(self, field):
         vals = [getattr(a, field) for a in self.answers]
@@ -69,17 +74,17 @@ def power_limit():
 
 def run_cell(name, seed, seconds, trace, device="cuda", t_process=None,
              config_overrides=None, traffic_overrides=None, log=sys.stderr,
-             bench=None):
-    """Run cell ``name`` of ``bench`` (default: ``BENCHMARK.json``) once;
-    returns the result's dict (``checks`` last). ``t_process`` is the
-    host clock at the process's start."""
+             root=manifest.ROOT):
+    """Run cell ``name`` of the ``BENCHMARK.json`` in ``root`` once, with
+    the files it names there; returns the result's dict (``checks``
+    last). ``t_process`` is the host clock at the process's start."""
     t_process = time.perf_counter() if t_process is None else t_process
-    bench = manifest.load() if bench is None else bench
+    bench = manifest.load(root)
     cell = manifest.workload(bench, name)
-    cfg, cfg_mod = manifest.config(bench, cell["config"])
+    cfg, cfg_mod = manifest.config(bench, cell["config"], root)
     cfg = _merge(cfg, config_overrides)
-    mix = _merge(manifest.traffic(cell["traffic"]), traffic_overrides)
-    limits = manifest.limits(name)
+    mix = _merge(manifest.traffic(cell["traffic"], root), traffic_overrides)
+    limits = manifest.limits(name, root)
     on_card = torch.device(device).type == "cuda"
 
     # -- set-up ------------------------------------------------------------
@@ -170,16 +175,18 @@ def run_cell(name, seed, seconds, trace, device="cuda", t_process=None,
     else:
         t2 = time.perf_counter()
         tr = tracing.reduce(prof)
+        pt = spans.reduce(prof)
         print(f"trace: {len(tr.kernels)} kernels, {len(tr.copies)} copies, "
               f"{sum(map(len, tr.spans.values()))} spans, reduced in "
               f"{time.perf_counter() - t2:.1f} s; not device work: "
               f"{sorted(tr.skipped.items())[:10]}", file=log)
         run = Run(answers=answers, traced=answers[:TRACED_REQUESTS],
                   trace=tr,
-                  rates=yardstick.card_rates(dev["kind"]) if on_card else None)
+                  rates=yardstick.card_rates(dev["kind"]) if on_card else None,
+                  program=pt)
         result["metrics"] = {}
         for m in manifest.metrics_of(bench, name, "per_layer"):
-            value = manifest.reader(m["name"])(run)
+            value = manifest.reader(m["name"], root)(run)
             if value is not None:
                 result["metrics"][m["name"]] = {"value": value, "unit": m["unit"]}
         window = tr.window()
@@ -188,9 +195,11 @@ def run_cell(name, seed, seconds, trace, device="cuda", t_process=None,
             dev["busy_s"] = tracing.busy(tr.device_intervals(), lo, hi)
             dev["window_s"] = hi - lo
             gs, ge = tracing.idle_gaps(tr.device_intervals(), lo, hi)
+            named = spans.name_gaps(gs, ge, pt.spans)
+            spans.report(pt, named, log)
             result["breakdown"] = {
                 "device_ops": [[k, v] for k, v in tracing.top_kernels(tr.kernels)],
-                "idle_gaps": [[k, v] for k, v in tracing.name_gaps(gs, ge, tr.spans)[:10]],
+                "idle_gaps": [[k, v] for k, v in named[:10]],
             }
     if on_card:
         dev["power_limit"] = power_limit()

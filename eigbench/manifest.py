@@ -5,16 +5,23 @@
   ``matrix(cfg)``, the matrix A or a dict of named operands such as
   ``{"A": A, "B": B}``; ``reference(cfg, nev, which, sigma, dtype,
   vectors)``, the wanted eigenpairs; and optionally ``compare``, where
-  the problem needs another comparison than ``reference/compare.py``'s);
+  the problem needs another comparison than ``reference/compare.py``'s,
+  with ``NUMBERS``, the names of the numbers it returns);
 * a traffic mix: ``traffic/<name>.json``;
 * a per-layer metric: its reader ``metrics/<name>.py``, a function
   ``read(run)`` that returns a number or None; a metric named
   ``<base>.<part>`` (one quantity split by cell) is read by
   ``metrics/<base>.py`` where it has no file of its own;
 * a cell's limits: ``limits/<workload>.json``, one limit for each
-  number that the cell's comparison holds.
+  number that its configuration's comparison returns;
+* a cell's tiny size for the CPU tests: ``tiny/<workload>.json``,
+  ``{"config": {...}, "traffic": {...}}``, overrides merged into the
+  configuration and the traffic mix.
 
-No file of one configuration, mix, metric or cell names another's.
+Each function takes ``root``, the directory that holds
+``BENCHMARK.json`` and the benchmark's folder (by default this
+checkout). No file of one configuration, mix, metric or cell names
+another's.
 """
 
 import importlib.util
@@ -25,6 +32,8 @@ from eigbench.reference import compare as _compare
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
+#: The benchmark's folder, relative to ``root``.
+FOLDER = HERE.relative_to(ROOT)
 
 
 def load(root=ROOT):
@@ -52,6 +61,11 @@ def _module(path: Path, label: str):
     return mod
 
 
+def _json(path: Path):
+    with open(path) as f:
+        return json.load(f)
+
+
 def config_paths(bench, name, root=ROOT):
     """(JSON file, reference module) of configuration ``name``."""
     path = Path(root) / _one(bench["configs"], name, "config")["file"]
@@ -61,9 +75,7 @@ def config_paths(bench, name, root=ROOT):
 def config(bench, name, root=ROOT):
     """(parameters, module) of configuration ``name``."""
     path, code = config_paths(bench, name, root)
-    with open(path) as f:
-        cfg = json.load(f)
-    return cfg, _module(code, f"eigbench_config:{name}")
+    return _json(path), _module(code, f"eigbench_config:{name}")
 
 
 def operands(mod, cfg):
@@ -78,33 +90,48 @@ def comparison(mod):
     return getattr(mod, "compare", _compare.compare)
 
 
-def traffic_path(name):
-    return HERE / "traffic" / f"{name}.json"
+def numbers(mod):
+    """The names of the numbers that :func:`comparison` returns: the
+    module's ``NUMBERS`` where it brings its own ``compare``."""
+    return tuple(mod.NUMBERS) if hasattr(mod, "compare") else _compare.NUMBERS
 
 
-def traffic(name):
-    with open(traffic_path(name)) as f:
-        return json.load(f)
+def _data(root, kind, name, suffix=".json"):
+    return Path(root) / FOLDER / kind / f"{name}{suffix}"
 
 
-def limits_path(name):
-    return HERE / "limits" / f"{name}.json"
+def traffic_path(name, root=ROOT):
+    return _data(root, "traffic", name)
 
 
-def limits(name):
-    with open(limits_path(name)) as f:
-        return json.load(f)
+def traffic(name, root=ROOT):
+    return _json(traffic_path(name, root))
 
 
-def metric_path(name):
-    path = HERE / "metrics" / f"{name}.py"
+def limits_path(name, root=ROOT):
+    return _data(root, "limits", name)
+
+
+def limits(name, root=ROOT):
+    return _json(limits_path(name, root))
+
+
+def tiny(name, root=ROOT):
+    """(configuration overrides, traffic overrides) of cell ``name`` at
+    its tiny CPU size."""
+    t = _json(_data(root, "tiny", name))
+    return t.get("config") or {}, t.get("traffic") or {}
+
+
+def metric_path(name, root=ROOT):
+    path = _data(root, "metrics", name, ".py")
     if not path.exists() and "." in name:
-        path = HERE / "metrics" / f"{name.split('.')[0]}.py"
+        path = _data(root, "metrics", name.split(".")[0], ".py")
     return path
 
 
-def reader(name):
-    return _module(metric_path(name), f"eigbench_metric:{name}").read
+def reader(name, root=ROOT):
+    return _module(metric_path(name, root), f"eigbench_metric:{name}").read
 
 
 def metrics_of(bench, cell, section):

@@ -6,8 +6,9 @@ eigenvalues and against the configuration's operands themselves, in f64
 on the host. This is the comparison of a real symmetric problem, ``A u
 = lambda u``, or ``A u = lambda B u`` where the configuration gives a
 ``B``. A configuration whose problem needs another (complex pairs, say)
-defines its own ``compare`` with this signature in its module, and the
-harness takes that one.
+defines its own ``compare`` with this signature in its module, with
+``NUMBERS``, the names of the numbers it returns, and the harness takes
+that one.
 
 Both sides are sorted by value and paired in that order; each pair is
 measured against the scale of its wanted value, ``|lambda_ref - sigma|``
@@ -28,6 +29,9 @@ A number that is not finite, or one of a missing pair, reads as
 import math
 
 import numpy as np
+
+#: The names of the numbers :func:`compare` returns.
+NUMBERS = ("value_err", "residual", "orthogonality", "missing_pairs", "not_successful")
 
 
 def _finite(x):

@@ -25,14 +25,14 @@ from eigbench import manifest  # noqa: E402
 from eigbench.reference.compare import fails  # noqa: E402
 
 
-def control_numbers(name, dtype=np.float32, config_overrides=None, bench=None):
-    """The numbers of cell ``name``'s control answer (a cell of ``bench``,
-    by default ``BENCHMARK.json``)."""
-    bench = manifest.load() if bench is None else bench
+def control_numbers(name, dtype=np.float32, config_overrides=None, root=manifest.ROOT):
+    """The numbers of cell ``name``'s control answer (a cell of the
+    ``BENCHMARK.json`` in ``root``)."""
+    bench = manifest.load(root)
     cell = manifest.workload(bench, name)
-    cfg, mod = manifest.config(bench, cell["config"])
+    cfg, mod = manifest.config(bench, cell["config"], root)
     cfg = {**cfg, **(config_overrides or {})}
-    want = manifest.traffic(cell["traffic"])["wanted"]
+    want = manifest.traffic(cell["traffic"], root)["wanted"]
     nev, sigma = int(want["nev"]), float(want.get("sigma", 0.0))
     operands = manifest.operands(mod, cfg)
     ref, _ = mod.reference(cfg, nev, want["which"], sigma, np.float64, vectors=False)

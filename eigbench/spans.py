@@ -11,22 +11,13 @@ correlation id). Device work is put down to the spans that were open
 when it was issued; an idle gap of the card to the innermost span open
 at its midpoint, the one that started last (:func:`name_gaps`).
 
-The per-layer metrics of :data:`PER_LAYER` read one reduction a
-profiler through :func:`of_run`. The harness hands a reader its
-``Run``, whose ``trace`` holds the benchmark's spans alone; a ``Run``
-that carries a ``program`` (a :class:`ProgramTrace`) is read as it is,
-and otherwise the stopped profiler is taken from the calling frames,
-where the harness holds it while its readers run. A reader that finds
-no program spans (a program that opens none), no device events (no
-card) or device work whose issuing call is not in the trace returns
-None and says why on standard error.
-
-Run as a script on a card, it makes one traced run of a cell with the
-metrics of :data:`PER_LAYER` added to the cell's per-layer metrics,
-prints the result line last, and prints the card's idle gaps by
-program span on standard error:
-
-    python3 eigbench/spans.py --workload <cell> --seed <n> --seconds <s>
+The harness reduces a traced run's profiler once and hands the
+:class:`ProgramTrace` to the readers in its ``Run`` (``run.program``).
+The per-layer metrics of ``BENCHMARK.json`` whose ``source`` is
+``program_span`` read it through :func:`read_metric`; one that finds no
+program spans (a program that opens none), no device events (no card)
+or device work whose issuing call is not in the trace returns None and
+says why on standard error.
 """
 
 import dataclasses
@@ -34,29 +25,7 @@ import sys
 
 import numpy as np
 
-if __package__ in (None, ""):  # run as a script: import as eigbench.*
-    from pathlib import Path
-
-    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-
-from eigbench import tracing  # noqa: E402
-
-#: The per-layer metrics read from the program's spans, as entries of
-#: ``BENCHMARK.json``'s ``per_layer``; each has a reader in ``metrics/``.
-PER_LAYER = [
-    {"name": "filter_launches_per_apply", "unit": "launches/apply", "better": "lower",
-     "source": "program_span", "layer": "Chebyshev filter",
-     "moves": "solve_s.lap2d_cheb_largest10", "workloads": ["lap2d_cheb_largest10"]},
-    {"name": "filter_host_us_per_launch", "unit": "us/launch", "better": "lower",
-     "source": "program_span", "layer": "Chebyshev filter",
-     "moves": "solve_s.lap2d_cheb_largest10", "workloads": ["lap2d_cheb_largest10"]},
-    {"name": "host_reads_per_restart", "unit": "reads/restart", "better": "lower",
-     "source": "program_span", "layer": "driver",
-     "moves": "solve_s.lap2d_cheb_largest10", "workloads": ["lap2d_cheb_largest10"]},
-    {"name": "jd_qr_pct", "unit": "%", "better": "lower",
-     "source": "program_span", "layer": "JD host loop",
-     "moves": "solve_s.band5_davidson_largest10", "workloads": ["band5_davidson_largest10"]},
-]
+from eigbench import tracing
 
 
 @dataclasses.dataclass
@@ -116,31 +85,6 @@ def reduce(prof, program=None):
                         unlinked=unlinked, program=program)
 
 
-def find_profiler():
-    """The ``torch.profiler.profile`` held by a calling frame, or None."""
-    from torch.profiler import profile
-
-    frame = sys._getframe(1)
-    while frame is not None:
-        for value in frame.f_locals.values():
-            if isinstance(value, profile):
-                return value
-        frame = frame.f_back
-    return None
-
-
-#: The last reduction, [(profiler, ProgramTrace)]: the readers of one
-#: traced run share it.
-_LAST = []
-
-
-def _reduced(prof, trace):
-    if not _LAST or _LAST[0][0] is not prof:
-        _LAST[:] = [(prof, reduce(prof))]
-        report(_LAST[0][1], trace)
-    return _LAST[0][1]
-
-
 def _say(metric, why):
     print(f"{metric}: {why}: not reported", file=sys.stderr)
 
@@ -150,13 +94,10 @@ def of_run(run, metric):
     standard error) where ``metric`` has nothing to read."""
     if run.trace is None:
         return None
-    pt = getattr(run, "program", None)
+    pt = run.program
     if pt is None:
-        prof = find_profiler()
-        if prof is None:
-            _say(metric, "no profiler in the calling frames")
-            return None
-        pt = _reduced(prof, run.trace)
+        _say(metric, "no program trace in the run")
+        return None
     if not pt.program or not any(pt.spans.get(n) for n in pt.program):
         _say(metric, "the program opened no spans")
         return None
@@ -170,22 +111,18 @@ def of_run(run, metric):
     return pt
 
 
-def report(pt, trace):
-    """The card's idle gaps in the traced requests by program span, and
-    folded into the benchmark's spans, on standard error."""
-    window = trace.window()
-    if window is None or not trace.kernels:
-        return
-    gs, ge = tracing.idle_gaps(trace.device_intervals(), *window)
-    named = name_gaps(gs, ge, pt.spans)
+def report(pt, named, log=sys.stderr):
+    """The card's idle gaps by program span (:func:`name_gaps`'s
+    ``named``), folded into the benchmark's spans, and each span's count
+    and host seconds, on ``log``."""
     print("spans: idle s by innermost span: "
-          + " ".join(f"{k}={v:.6f}" for k, v in named[:24]), file=sys.stderr)
+          + " ".join(f"{k}={v:.6f}" for k, v in named[:24]), file=log)
     print("spans: folded into the benchmark's spans: "
-          + " ".join(f"{k}={v:.6f}" for k, v in fold(named)), file=sys.stderr)
+          + " ".join(f"{k}={v:.6f}" for k, v in fold(named)), file=log)
     held = " ".join(f"{k}={len(v)}/{sum(e - s for s, e in v):.6f}"
                     for k, v in pt.spans.items() if v)
     print(f"spans: count/host s {held}; {len(pt.kernels)} kernels, {len(pt.reads)} "
-          f"device-to-host reads, {len(pt.unlinked)} unlinked", file=sys.stderr)
+          f"device-to-host reads, {len(pt.unlinked)} unlinked", file=log)
 
 
 # -- attribution -------------------------------------------------------------
@@ -313,43 +250,3 @@ def fold(named):
         base = key.split("/")[0]
         out[base] = out.get(base, 0.0) + sec
     return sorted(out.items(), key=lambda kv: -kv[1])
-
-
-# -- the script --------------------------------------------------------------
-
-
-def main(argv=None):
-    import argparse
-    import json
-    import os
-    import time
-
-    t_process = time.perf_counter()
-    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--workload", required=True)
-    p.add_argument("--seed", type=int, required=True)
-    p.add_argument("--seconds", type=float, required=True)
-    args = p.parse_args(argv)
-    from eigbench import run as run_py
-
-    for key, rel in run_py.CACHES.items():
-        os.environ[key] = str(run_py.ROOT / rel)
-
-    import torch
-
-    from eigbench import harness, manifest
-
-    if not torch.cuda.is_available():
-        print("spans.py needs a CUDA card", file=sys.stderr)
-        return 2
-    bench = manifest.load()
-    known = {m["name"] for m in bench["per_layer"]}
-    bench["per_layer"] = bench["per_layer"] + [m for m in PER_LAYER if m["name"] not in known]
-    result = harness.run_cell(args.workload, args.seed, args.seconds, True,
-                              device="cuda:0", t_process=t_process, bench=bench)
-    print(json.dumps(result), flush=True)
-    return 0
-
-
-if __name__ == "__main__":
-    sys.exit(main())

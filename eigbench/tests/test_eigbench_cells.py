@@ -1,12 +1,9 @@
-"""Each cell end to end on the CPU at a tiny size (the port's plain
-kernels), the comparison on perturbed answers, the float32 control,
-runs whose timed path is broken underneath (each must read ``correct``
-false), and the generator's data form on solver calls that no cell
-makes yet.
-
-Tiny sizes: the Laplacian at g = 32 (Chebyshev: a wider cut and a
-lower degree, since the top of a small grid's spectrum is not
-clustered), the banded matrix at n = 3,000 with offsets +-50."""
+"""Each cell end to end on the CPU at its tiny size (``tiny/<cell>.json``,
+the port's plain kernels), the comparison on perturbed answers, the
+float32 control, runs whose timed path is broken underneath (each must
+read ``correct`` false), and the generator's data form on solver calls
+that no cell makes yet. The cells are those of ``BENCHMARK.json`` and
+the non-symmetric cell of ``benches.py``'s copy."""
 
 import dataclasses
 
@@ -16,46 +13,51 @@ import scipy.linalg as sla
 import scipy.sparse as sps
 import torch
 
+import benches
 from eigbench import harness, manifest, traffic
 from eigbench.reference.compare import compare, fails
 from eigbench.reference.control import control_numbers
 
-TINY = {
-    "lap2d_cheb_largest10": ({"grid": 32},
-                             {"solver": {"kwargs": {"cut_fraction": 0.1, "degree": 30}}}),
-    "band5_davidson_largest10": ({"n": 3000, "offsets": [-50, -1, 0, 1, 50]}, None),
-}
-CELLS = list(TINY)
+CELLS = benches.cells()
 SEED = 2 ** 31 + 12345
-BENCH = manifest.load()
 
 
-def run(cell, trace=0, seconds=0.3, seed=SEED):
-    cfg, mix = TINY[cell]
+def run(root, cell, trace=0, seconds=0.3, seed=SEED):
+    cfg, mix = manifest.tiny(cell, root)
     return harness.run_cell(cell, seed, seconds, trace, device="cpu",
-                            config_overrides=cfg, traffic_overrides=mix, bench=BENCH)
+                            config_overrides=cfg, traffic_overrides=mix, root=root)
 
 
-@pytest.mark.parametrize("cell", CELLS)
-def test_cell_runs_and_is_correct(cell):
-    r = run(cell)
+def counters(bench, cell):
+    """The per-layer metrics that a traced CPU run of ``cell`` reports:
+    the program's counters; the device trace and the program's spans
+    have nothing to read without a card."""
+    return {m["name"] for m in manifest.metrics_of(bench, cell, "per_layer")
+            if m["source"] == "program_counter"}
+
+
+@pytest.mark.parametrize("kind,cell", CELLS)
+def test_cell_runs_and_is_correct(kind, cell, roots):
+    r = run(roots[kind], cell)
     assert r["correct"] and r["failed"] == 0 and r["attempted"] >= 1
-    assert set(r["metrics"]) == {f"solve_s.{cell}", "setup_s"}
+    bench = manifest.load(roots[kind])
+    assert set(r["metrics"]) == {m["name"] for m in manifest.metrics_of(bench, cell, "end_to_end")}
     assert all(m["value"] > 0 for m in r["metrics"].values())
     assert list(r)[-1] == "checks"
-    limits = manifest.limits(cell)
+    limits = manifest.limits(cell, roots[kind])
+    assert set(r["checks"]) == set(limits)
     for k, c in r["checks"].items():
         assert c["limit"] == limits[k] and c["value"] <= c["limit"]
 
 
-@pytest.mark.parametrize("cell", CELLS)
-def test_traced_run_reports_its_counters(cell):
-    r = run(cell, trace=1)
+@pytest.mark.parametrize("kind,cell", CELLS)
+def test_traced_run_reports_its_counters(kind, cell, roots):
+    r = run(roots[kind], cell, trace=1)
     assert r["correct"]
-    want = {"lap2d_cheb_largest10": {"restarts", "operator_applies"},
-            "band5_davidson_largest10": {"jd_iterations"}}[cell]
+    want = counters(manifest.load(roots[kind]), cell)
     # No card: the device trace has nothing to read, and says nothing.
-    assert set(r["metrics"]) == want
+    assert want and set(r["metrics"]) == want
+    assert all(r["metrics"][k]["value"] > 0 for k in want)
     assert "busy_s" not in r["device"] and "breakdown" not in r
 
 
@@ -69,42 +71,46 @@ def test_seeds_draw_different_starts_and_a_seed_repeats():
     traffic.start_vector((-3, 0), 5, torch.float64, "cpu")  # any whole seed
 
 
-def reference_answer(cell):
-    entry = manifest.workload(BENCH, cell)
-    cfg, mod = manifest.config(BENCH, entry["config"])
-    cfg = {**cfg, **TINY[cell][0]}
-    want = manifest.traffic(entry["traffic"])["wanted"]
-    A, sigma = {"A": mod.matrix(cfg)}, float(want.get("sigma", 0.0))
+def reference_answer(root, cell):
+    """The cell's operands, reference pairs at its tiny size, shift and
+    comparison."""
+    bench = manifest.load(root)
+    entry = manifest.workload(bench, cell)
+    cfg, mod = manifest.config(bench, entry["config"], root)
+    cfg = {**cfg, **manifest.tiny(cell, root)[0]}
+    want = manifest.traffic(entry["traffic"], root)["wanted"]
+    sigma = float(want.get("sigma", 0.0))
     vals, vecs = mod.reference(cfg, int(want["nev"]), want["which"], sigma)
-    return A, vals, vecs, sigma
+    return manifest.operands(mod, cfg), vals, vecs, sigma, manifest.comparison(mod)
 
 
-@pytest.mark.parametrize("cell", CELLS)
-def test_comparison_passes_the_reference_and_fails_perturbed_answers(cell):
-    A, vals, vecs, sigma = reference_answer(cell)
-    limits = manifest.limits(cell)
+@pytest.mark.parametrize("kind,cell", CELLS)
+def test_comparison_passes_the_reference_and_fails_perturbed_answers(kind, cell, roots):
+    A, vals, vecs, sigma, cmp = reference_answer(roots[kind], cell)
+    limits = manifest.limits(cell, roots[kind])
     n = len(vals)
-    assert fails(compare(A, vals, vals, vecs, n, True, sigma), limits) == []
+    assert fails(cmp(A, vals, vals, vecs, n, True, sigma), limits) == []
     bad = vals.copy()
     bad[3] *= 1 + 1e-7
-    assert "value_err" in fails(compare(A, vals, bad, vecs, n, True, sigma), limits)
+    assert "value_err" in fails(cmp(A, vals, bad, vecs, n, True, sigma), limits)
     U = vecs.copy()
     U[7, 2] += 1e-6
-    assert "residual" in fails(compare(A, vals, vals, U, n, True, sigma), limits)
-    got = fails(compare(A, vals, vals[:5], vecs[:, :5], 5, True, sigma), limits)
+    assert "residual" in fails(cmp(A, vals, vals, U, n, True, sigma), limits)
+    got = fails(cmp(A, vals, vals[:-1], vecs[:, :-1], n - 1, True, sigma), limits)
     assert "missing_pairs" in got
-    assert fails(compare(A, vals, vals, vecs, n, False, sigma), limits) == [
+    assert fails(cmp(A, vals, vals, vecs, n, False, sigma), limits) == [
         "not_successful"]
 
 
-@pytest.mark.parametrize("cell", CELLS)
-def test_float32_control_fails_the_cells_limits(cell):
-    nums = control_numbers(cell, config_overrides=TINY[cell][0], bench=BENCH)
-    assert fails(nums, manifest.limits(cell))
+@pytest.mark.parametrize("kind,cell", CELLS)
+def test_float32_control_fails_the_cells_limits(kind, cell, roots):
+    root = roots[kind]
+    tiny = manifest.tiny(cell, root)[0]
+    nums = control_numbers(cell, config_overrides=tiny, root=root)
+    assert fails(nums, manifest.limits(cell, root))
     # The same reference in float64 passes.
-    f64 = control_numbers(cell, dtype=np.float64, config_overrides=TINY[cell][0],
-                          bench=BENCH)
-    assert fails(f64, manifest.limits(cell)) == []
+    f64 = control_numbers(cell, dtype=np.float64, config_overrides=tiny, root=root)
+    assert fails(f64, manifest.limits(cell, root)) == []
 
 
 class BrokenOp:
@@ -133,21 +139,31 @@ def altered(answer):
     return dataclasses.replace(answer, values=values, vectors=vectors)
 
 
-@pytest.mark.parametrize("fault", ["unchanged", "half_rows", "altered_answer"])
-@pytest.mark.parametrize("cell", CELLS)
-def test_a_broken_timed_path_reads_not_correct(cell, fault, monkeypatch):
+def dropped(answer):
+    """The answer without its last pair."""
+    return dataclasses.replace(answer, values=answer.values[:-1],
+                               vectors=answer.vectors[:, :-1], nconv=answer.nconv - 1)
+
+
+@pytest.mark.parametrize("fault", ["unchanged", "half_rows", "altered_answer",
+                                   "dropped_pair"])
+@pytest.mark.parametrize("kind,cell", CELLS)
+def test_a_broken_timed_path_reads_not_correct(kind, cell, fault, roots, monkeypatch):
     build, request = traffic.build, traffic.request
-    if fault == "altered_answer":
+    if fault in ("altered_answer", "dropped_pair"):
+        change = altered if fault == "altered_answer" else dropped
         monkeypatch.setattr(traffic, "request",
-                            lambda *a, **k: altered(request(*a, **k)))
+                            lambda *a, **k: change(request(*a, **k)))
     else:
-        def broken_build(*a, **k):
-            served = build(*a, **k)
-            names = dict(served.names, op=BrokenOp(served.names["op"], fault))
+        def broken_build(mix, *a, **k):
+            served = build(mix, *a, **k)
+            names = dict(served.names)
+            for op in mix["operators"]:  # every operator the traffic builds
+                names[op] = BrokenOp(names[op], fault)
             return dataclasses.replace(served, names=names)
 
         monkeypatch.setattr(traffic, "build", broken_build)
-    r = run(cell)
+    r = run(roots[kind], cell)
     assert r["correct"] is False and r["failed"] >= 1
 
 

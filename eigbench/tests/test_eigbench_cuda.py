@@ -9,6 +9,8 @@ from pathlib import Path
 import pytest
 import torch
 
+from eigbench import manifest
+
 ROOT = Path(__file__).resolve().parents[2]
 
 
@@ -32,10 +34,11 @@ def test_a_short_run_on_the_card_is_correct(trace):
     assert out.stderr.strip().splitlines()[-1].startswith("check ")
     if trace == "1":
         assert 0 < result["device"]["busy_s"] <= result["device"]["window_s"]
-        assert set(result["metrics"]) == {
-            "jd_iterations", f"k1_roofline.{cell}", f"device_idle_pct.{cell}"}
+        section = "per_layer"
     else:
-        assert set(result["metrics"]) == {f"solve_s.{cell}", "setup_s"}
+        section = "end_to_end"
+    bench = manifest.load()
+    assert set(result["metrics"]) == {m["name"] for m in manifest.metrics_of(bench, cell, section)}
 
 
 def test_without_a_card_the_run_refuses_and_prints_no_result():

@@ -1,13 +1,15 @@
 """``spans.py``: the program's spans and the device work each issued.
 
-The metrics of ``spans.PER_LAYER`` on synthetic traces with known
-spans, launches and copies, and None where a span or the issuing calls
-are missing; idle gaps named by the innermost span, the same as
-``tracing.name_gaps`` on the benchmark's spans alone, and folding back
-to its totals with the program's spans added; a CPU traced run of a
-tiny cell with the metrics added (no card: they report nothing, and the
-accepted readers read what they read without them); on a card (marked
-``cuda``), ``spans.py`` run as a script reports all four.
+The per-layer metrics of ``BENCHMARK.json`` read from the program's
+spans (``source`` ``program_span``) on synthetic traces with known
+spans, launches and copies, and None where a span, the issuing calls or
+the run's program trace are missing; idle gaps named by the innermost
+span, the same as ``tracing.name_gaps`` on the benchmark's spans alone,
+and folding back to its totals with the program's spans added; a CPU
+traced run of each tiny cell (no card: the span metrics report nothing
+and say why, the counters read as before); on a card (marked ``cuda``),
+a traced run of each cell reports its span metrics and names the idle
+gaps by program span.
 """
 
 import json
@@ -20,12 +22,15 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
+import benches
 from eigbench import harness, manifest, spans, tracing, yardstick
 from eigbench.harness import Run
 from eigbench.traffic import Answer
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = manifest.load()
+#: The per-layer metrics read from the program's spans.
+SPAN_METRICS = [m for m in BENCH["per_layer"] if m["source"] == "program_span"]
 PROGRAM = ("cheb.filter", "irlm.restart", "jd.iteration", "jd.orthogonalize", "krylov.step")
 
 
@@ -53,15 +58,13 @@ def run_of(pt, kernels=()):
     trace = tracing.Trace(kernels=list(kernels), copies=[],
                           spans={k: v for k, v in pt.spans.items() if k in tracing.SPANS},
                           skipped={})
-    run = Run(answers=[answer], traced=[answer], trace=trace,
-              rates=yardstick.card_rates("H100"))
-    run.program = pt
-    return run
+    return Run(answers=[answer], traced=[answer], trace=trace,
+               rates=yardstick.card_rates("H100"), program=pt)
 
 
 def test_each_metric_on_a_synthetic_trace():
     pt = synthetic()
-    read = {m["name"]: manifest.reader(m["name"]) for m in spans.PER_LAYER}
+    read = {m["name"]: manifest.reader(m["name"]) for m in SPAN_METRICS}
     run = run_of(pt)
     # 5 kernels issued inside the two filter spans.
     assert read["filter_launches_per_apply"](run) == pytest.approx(2.5)
@@ -73,17 +76,25 @@ def test_each_metric_on_a_synthetic_trace():
     assert read["jd_qr_pct"](run) == pytest.approx(70.0)
     # The same 5 kernels in the two steps that hold the filters.
     assert spans.launches_per_span(pt, "krylov.step") == pytest.approx(2.5)
+    # Nothing issued inside their spans: a count reads 0, a ratio to
+    # what they issued nothing.
+    nothing = run_of(synthetic(kernels=[(9.5, 0.1)], reads=[9.6]))
+    assert read["filter_launches_per_apply"](nothing) == 0.0
+    assert read["host_reads_per_restart"](nothing) == 0.0
+    assert read["filter_host_us_per_launch"](nothing) is None
+    assert read["jd_qr_pct"](nothing) is None
 
 
-@pytest.mark.parametrize("metric", [m["name"] for m in spans.PER_LAYER])
+@pytest.mark.parametrize("metric", [m["name"] for m in SPAN_METRICS])
 def test_each_metric_reports_nothing_without_what_it_reads(metric, capsys):
     read = manifest.reader(metric)
-    span = {"filter_launches_per_apply": "cheb.filter",
-            "filter_host_us_per_launch": "cheb.filter",
-            "host_reads_per_restart": "irlm.restart",
-            "jd_qr_pct": "jd.orthogonalize"}[metric]
-    assert read(run_of(synthetic(extra={span: []}))) is None
-    assert f"no {span} span" in capsys.readouterr().err
+    # Some program span that it reads: without it, nothing, and it says so.
+    missing = []
+    for span in PROGRAM:
+        value = read(run_of(synthetic(extra={span: []})))
+        if value is None and f"no {span} span" in capsys.readouterr().err:
+            missing.append(span)
+    assert missing
     # A device event in the requests whose launch call is not in the trace.
     assert read(run_of(synthetic(unlinked=[(5.0, 5.1)]))) is None
     assert "without their issuing call" in capsys.readouterr().err
@@ -96,13 +107,13 @@ def test_each_metric_reports_nothing_without_what_it_reads(metric, capsys):
     run = run_of(synthetic())
     run.trace = None
     assert read(run) is None
-    # Nothing issued inside its spans: a count reads 0, a ratio to what
-    # they issued nothing.
-    nothing = read(run_of(synthetic(kernels=[(9.5, 0.1)], reads=[9.6])))
-    if metric in ("filter_launches_per_apply", "host_reads_per_restart"):
-        assert nothing == 0.0
-    else:
-        assert nothing is None
+    # A run that carries no program trace: the reader does not look for
+    # one elsewhere, not even under a running profiler.
+    run = run_of(synthetic())
+    run.program = None
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert read(run) is None
+    assert "no program trace in the run" in capsys.readouterr().err
 
 
 def random_nested(rng, names, depth=0, lo=0.0, hi=100.0):
@@ -189,16 +200,6 @@ def test_inside_takes_the_union_of_overlapping_spans():
     assert spans.inside([1.0], []).tolist() == [False]
 
 
-def test_find_profiler_reads_the_calling_frames():
-    def reader():
-        return spans.find_profiler()
-
-    assert reader() is None
-    with profile(activities=[ProfilerActivity.CPU]) as held:
-        pass
-    assert reader() is held
-
-
 def test_reduce_keeps_the_programs_and_the_benchmarks_spans():
     import spectra_tpu_torch as stt
     import scipy.sparse as sps
@@ -223,63 +224,56 @@ def test_reduce_keeps_the_programs_and_the_benchmarks_spans():
     assert set(tracing.reduce(prof).spans) == set(tracing.SPANS)
 
 
-TINY = {"lap2d_cheb_largest10": ({"grid": 32},
-                                 {"solver": {"kwargs": {"cut_fraction": 0.1, "degree": 30}}}),
-        "band5_davidson_largest10": ({"n": 3000, "offsets": [-50, -1, 0, 1, 50]}, None)}
-
-
-@pytest.mark.parametrize("cell", list(TINY))
-def test_a_cpu_traced_run_with_the_metrics_added(cell, capsys):
-    cfg, mix = TINY[cell]
-    extended = manifest.load()
-    extended["per_layer"] = extended["per_layer"] + spans.PER_LAYER
-
-    def traced(bench):
-        return harness.run_cell(cell, 2 ** 31 + 99, 0.3, True, device="cpu",
-                                config_overrides=cfg, traffic_overrides=mix, bench=bench)
-
-    with_spans, without = traced(extended), traced(BENCH)
-    assert with_spans["correct"] and without["correct"]
-    # No card: the program-span metrics find no kernel and say so; the
-    # accepted metrics read the same numbers.
-    assert with_spans["metrics"] == without["metrics"]
+@pytest.mark.parametrize("kind,cell", benches.cells())
+def test_a_cpu_traced_run_reads_the_counters_and_says_why_spans_read_nothing(
+        kind, cell, roots, capsys):
+    root = roots[kind]
+    bench = manifest.load(root)
+    cfg, mix = manifest.tiny(cell, root)
+    r = harness.run_cell(cell, 2 ** 31 + 99, 0.3, True, device="cpu",
+                         config_overrides=cfg, traffic_overrides=mix, root=root)
+    assert r["correct"]
+    per = manifest.metrics_of(bench, cell, "per_layer")
+    # No card: the counters read, the device trace and the program's
+    # spans find no kernel, and the span metrics say so.
+    assert set(r["metrics"]) == {m["name"] for m in per if m["source"] == "program_counter"}
     err = capsys.readouterr().err
-    for m in spans.PER_LAYER:
-        if cell in m["workloads"]:
+    for m in per:
+        if m["source"] == "program_span":
             assert f"{m['name']}: no device kernel in the trace: not reported" in err
 
 
-def test_per_layer_entries_keep_the_manifests_contract():
+def test_span_metrics_keep_the_manifests_contract():
     cells = {c["name"] for c in BENCH["workloads"]}
-    e2e = {m["name"]: m for m in BENCH["end_to_end"]}
-    accepted = {m["name"] for m in BENCH["per_layer"]}
-    layers = {m["layer"] for m in BENCH["per_layer"]}
-    for m in spans.PER_LAYER:
+    assert SPAN_METRICS
+    for m in SPAN_METRICS:
         assert set(m) == {"name", "unit", "better", "source", "layer", "moves", "workloads"}
-        assert m["name"] not in accepted and m["source"] == "program_span"
-        assert m["better"] in ("lower", "higher") and m["moves"] in e2e
-        assert set(m["workloads"]) <= cells
-        assert set(m["workloads"]) <= set(e2e[m["moves"]].get("workloads", cells))
-        assert m["layer"] in layers or m["layer"] == "Chebyshev filter"
+        assert m["workloads"] and set(m["workloads"]) <= cells
+        for cell in m["workloads"]:
+            e2e = {e["name"] for e in manifest.metrics_of(BENCH, cell, "end_to_end")}
+            assert m["moves"] in e2e
         assert callable(manifest.reader(m["name"]))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cell", ["lap2d_cheb_largest10", "band5_davidson_largest10"])
-def test_spans_script_reports_the_metrics_on_the_card(cell):
+@pytest.mark.parametrize("cell", [c["name"] for c in BENCH["workloads"]])
+def test_a_traced_run_on_the_card_reports_the_span_metrics(cell):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    out = subprocess.run([sys.executable, "eigbench/spans.py", "--workload", cell,
-                          "--seed", "4100000001", "--seconds", "1"], cwd=ROOT,
-                         capture_output=True, text=True, timeout=1200)
+    out = subprocess.run([sys.executable, "eigbench/run.py", "--workload", cell,
+                          "--seed", "4100000001", "--seconds", "1", "--trace", "1"],
+                         cwd=ROOT, capture_output=True, text=True, timeout=1200)
     assert out.returncode == 0, out.stderr[-4000:]
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["correct"]
     got = {k: v["value"] for k, v in result["metrics"].items()}
-    want = {m["name"] for m in spans.PER_LAYER if cell in m["workloads"]}
+    want = {m["name"] for m in SPAN_METRICS if cell in m["workloads"]}
     assert want <= set(got), out.stderr[-4000:]
     for name in want:
         assert got[name] > 0
-    if cell == "band5_davidson_largest10":
-        assert got["jd_qr_pct"] <= 100.0
+        if next(m for m in SPAN_METRICS if m["name"] == name)["unit"] == "%":
+            assert got[name] <= 100.0
     assert "spans: idle s by innermost span:" in out.stderr
+    # The idle gaps are named by the program's spans.
+    program = spans.program_span_names()
+    assert any(k.rpartition("/")[2] in program for k, _ in result["breakdown"]["idle_gaps"])
