@@ -6,12 +6,14 @@ include/Spectra/LinAlg/RitzPairs.h:23-126): from a search space V and
 assemble Ritz values, small-space vectors, Ritz vectors ``V s`` and
 residues ``A V s - V s theta``. The products run on V's device; the
 small Hermitian eigenproblem runs on the host (:func:`eigh_host`,
-LAPACK through numpy, the routine the JAX package's CPU route calls).
+LAPACK through numpy, the routine the JAX package's CPU route calls),
+on one BLAS thread below the order :data:`ONE_THREAD_BELOW`.
 
 The values are a CPU f64 tensor; the small vectors, Ritz vectors and
 residues lie on V's device.
 """
 
+import contextlib
 from typing import NamedTuple
 
 import numpy as np
@@ -19,7 +21,19 @@ import torch
 
 from spectra_tpu_torch.linalg.jacobi import nan_eigenpairs
 from spectra_tpu_torch.ops.gemv import col_norms
+from spectra_tpu_torch.util import blas_threads
+from spectra_tpu_torch.util.profiling import span
 from spectra_tpu_torch.util.selection import SortRule, argsort
+
+#: Orders below which :func:`eigh_host` holds numpy's BLAS pool to the
+#: calling thread. np.linalg.eigh on an H100 host (8 cores, OpenBLAS
+#: 0.3.30, pthreads), median ms on one thread / on the default eight
+#: (a range where two runs measured it): order 110 1.24 / 1.33, 256
+#: 6.39-7.54 / 7.29-8.67, 320 13.68 / 12.64, 384 25.67 / 21.19, 512
+#: 37.0-39.5 / 31.3-34.7, 1024 276 / 164. Besides, the eight threads
+#: still spinning after a call slowed the Davidson loop's next PyTorch
+#: operations by about 10 ms (PERF.md, sections 5 and 6).
+ONE_THREAD_BELOW = 320
 
 
 class RitzPairs(NamedTuple):
@@ -34,11 +48,15 @@ def eigh_host(M):
     on the host: ascending eigenvalues and the eigenvectors as columns,
     CPU tensors. A matrix with a non-finite entry gives NaNs, as
     ``jnp.linalg.eigh`` does (numpy would raise), so that the solvers
-    stop on it with ``NumericalIssue``."""
+    stop on it with ``NumericalIssue``. Below the order
+    :data:`ONE_THREAD_BELOW` the call runs on one BLAS thread
+    (:func:`blas_threads.one_thread`)."""
     M = M.detach().cpu()
     if not torch.isfinite(M).all():
         return nan_eigenpairs(M)
-    w, s = np.linalg.eigh(M.numpy())
+    small = M.shape[-1] < ONE_THREAD_BELOW
+    with blas_threads.one_thread() if small else contextlib.nullcontext():
+        w, s = np.linalg.eigh(M.numpy())
     return torch.from_numpy(w), torch.from_numpy(s)
 
 
@@ -48,7 +66,8 @@ def compute_eigen_pairs(V, W, mesh=None) -> RitzPairs:
     ranks."""
     H = V.mH @ W
     H = (H if mesh is None else mesh.all_reduce(H)).cpu()
-    values, small = eigh_host(0.5 * (H + H.mH))
+    with span("jd.eigh"):
+        values, small = eigh_host(0.5 * (H + H.mH))
     small = small.to(V.device, V.dtype)
     vectors = V @ small
     residues = W @ small - vectors * values.to(V.device, V.dtype)[None, :]

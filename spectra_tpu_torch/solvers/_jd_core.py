@@ -88,7 +88,8 @@ def _rayleigh_ritz(V, W, size: int, selection: SortRule, mesh=None):
         j = torch.arange(M2, dtype=torch.float64)
         pad = j >= size
         cap = 2.0 * P.abs().max() + 1.0
-        w, s = eigh_host(P + torch.diag(torch.where(pad, cap * (1.0 + j), 0.0)))
+        with span("jd.eigh"):
+            w, s = eigh_host(P + torch.diag(torch.where(pad, cap * (1.0 + j), 0.0)))
         key = torch.where(pad, torch.inf, sort_target(selection, w))
         ind = torch.argsort(key, stable=True)
         return w[ind], s[:, ind]

@@ -32,12 +32,14 @@ SPANS = (
     "jd.collapse",  # the restart of the search space to the leading Ritz vectors
     "jd.apply",  # the operator on the new columns of the search space
     "jd.rayleigh_ritz",  # the Gram product V^T A V and its host eigh
+    "jd.eigh",  # the host eigh of the Rayleigh matrix, inside jd.rayleigh_ritz
     "jd.residual",  # Ritz vectors, residuals and their norms read to the host; convergence
     "jd.correction",  # the correction of the leading Ritz pairs (DPR for Davidson)
     "jd.orthogonalize",  # the correction projected off the basis and QR'd, twice
     "krylov.step",  # one Lanczos or Arnoldi step: the operator, the coefficients, the checks
     "krylov.reorth",  # the DGKS re-orthogonalization of a step's residual
     "cheb.filter",  # one filtered product: degree products of the operator and the recurrence
+    "eigh.one_thread",  # a host eigh held to one BLAS thread (util/blas_threads.py)
 )
 
 _OFF = contextlib.nullcontext()

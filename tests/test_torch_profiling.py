@@ -3,9 +3,10 @@
 Under a CPU ``torch.profiler`` a Chebyshev-filtered solve and a
 Davidson solve (both JD routes) record their spans at the layer
 boundaries, as many as the solver's counters imply and nested as the
-calls are; with no profiler running a span opens no
-``record_function``; the results are bitwise the same with the
-profiler on and off; ``SPANS`` names every span the program opens.
+calls are (one host eigh a Rayleigh-Ritz, held to one BLAS thread);
+with no profiler running a span opens no ``record_function``; the
+results are bitwise the same with the profiler on and off; ``SPANS``
+names every span the program opens.
 """
 
 import ast
@@ -20,7 +21,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 import spectra_tpu_torch as stt
-from spectra_tpu_torch.util import profiling
+from spectra_tpu_torch.util import blas_threads, profiling
 
 torch.set_num_threads(1)
 
@@ -140,6 +141,23 @@ def test_davidson_solve_records_one_iteration_span_an_iteration(route, monkeypat
         last = k == len(iterations) - 1
         assert held("jd.correction") == held("jd.orthogonalize") == (0 if last else 1)
     assert all(within(x, iterations) for x in spans["jd.collapse"])
+
+
+@pytest.mark.parametrize("route", ["auto", "host"])
+def test_davidson_opens_one_eigh_span_a_rayleigh_ritz(route, monkeypatch):
+    (s, nconv), spans = profiled(davidson_solve, route, monkeypatch)
+    assert nconv == 3
+    rr, eighs = spans["jd.rayleigh_ritz"], spans["jd.eigh"]
+    # The initial Rayleigh-Ritz of the default route lies outside the
+    # iterations; every one holds one eigh, and every eigh one limit.
+    assert len(rr) == len(eighs) >= s.num_iterations()
+    for outer in rr:
+        assert sum(within(e, [outer]) for e in eighs) == 1
+    one = spans.get("eigh.one_thread", [])
+    held = blas_threads.pool() is not None  # numpy carries an OpenBLAS
+    assert len(one) == held * len(eighs)
+    for e in eighs:
+        assert sum(within(x, [e]) for x in one) == held
 
 
 def test_spans_open_no_record_function_without_a_profiler(monkeypatch):
