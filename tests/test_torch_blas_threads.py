@@ -5,10 +5,10 @@ Below ``ONE_THREAD_BELOW`` the eigh runs with numpy's OpenBLAS pool held
 to one thread, and the pool reads its previous count after the call,
 also when the call raises; above it the pool is left as it is. The
 pairs equal the unlimited call's (values to 1e-13 relative, vectors up
-to sign), on a plain matrix and on the Davidson loop's padded one. A
+to sign), on a plain matrix and on a padded, block-diagonal one. A
 non-finite matrix gives NaN pairs, and Davidson ends on it with
-``NumericalIssue`` on both routes. Without a pool the call runs as
-before.
+``NumericalIssue`` under ``LargestAlge`` and ``BothEnds``. Without a
+pool the call runs as before.
 """
 
 import numpy as np
@@ -34,9 +34,8 @@ def symmetric(m, seed=0):
 
 
 def padded(m, seed=0):
-    """The Davidson loop's Rayleigh matrix (``_jd_core._rayleigh_ritz``):
-    an active block of half the order, and a pad whose diagonal sorts
-    past it."""
+    """A block-diagonal matrix: a symmetric block of half the order, and
+    a diagonal whose values sort past the block's."""
     size = m // 2
     P = torch.zeros((m, m), dtype=torch.float64)
     P[:size, :size] = symmetric(size, seed)
@@ -106,16 +105,15 @@ def test_a_non_finite_matrix_gives_nan_pairs(order, pool):
     assert p.threads() == BEFORE
 
 
-@pytest.mark.parametrize("route", ["auto", "host"])
-def test_davidson_on_a_nan_matrix_is_a_numerical_issue(route, pool, monkeypatch):
+@pytest.mark.parametrize("rule", ["LargestAlge", "BothEnds"])
+def test_davidson_on_a_nan_matrix_is_a_numerical_issue(rule, pool):
     p, _ = pool
-    monkeypatch.setenv("SPECTRA_TPU_JD_DRIVER", route)
     n = 200
     d = np.arange(1.0, n + 1)
     d[n // 2] = np.nan
     A = sps.diags([np.full(n - 1, 0.5), d, np.full(n - 1, 0.5)], [-1, 0, 1]).tocsr()
     s = stt.DavidsonSymEigsSolver(stt.SparseSymMatProd.from_full(A, device="cpu"), 3)
-    s.compute(stt.SortRule.LargestAlge, maxit=20)
+    s.compute(getattr(stt.SortRule, rule), maxit=20)
     assert s.info() == stt.CompInfo.NumericalIssue
     assert p.threads() == BEFORE
 

@@ -551,38 +551,47 @@ def test_j_structured_embedding_on_card(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("route", ["auto", "host"])
-def test_davidson_on_dia_operator_on_card(cuda, monkeypatch, route):
-    """Config #5b's matrix at n = 5,000 on both JD routes on the card:
-    10/10, the CPU's iteration count, values within 1e-9 ||A||, and on
-    the fixed-buffer route one K1 launch per operator call, the blocks
-    of 20 and then 10 columns; on both routes every QR the route issues
-    (two an iteration that extends the space) is the TSQR kernel's and
-    none goes to the library."""
+@pytest.mark.parametrize("solver", ["davidson", "subclass"])
+def test_davidson_on_dia_operator_on_card(cuda, monkeypatch, solver):
+    """Config #5b's matrix at n = 5,000 on the card, by Davidson and by
+    a JD subclass with only ``calculate_correction_vector``: 10/10, the
+    CPU's iteration count, values within 1e-9 ||A||, one K1 launch per
+    operator call, the blocks of 20 and then 10 columns, and every QR
+    the loop issues (two an iteration that extends the space) the TSQR
+    kernel's, none the library's."""
     import spectra_tpu_torch as stt
     from spectra_tpu_torch.linalg import orthogonalization as porth
     from spectra_tpu_torch.solvers import _jd_core as jd_core
 
-    monkeypatch.setenv("SPECTRA_TPU_JD_DRIVER", route)
+    class DprOnly(stt.JDSymEigsBase):
+        def __init__(self, op, nev):
+            super().__init__(op, nev)
+            self._diagonal = op.diagonal()
+
+        setup_initial_search_space = stt.DavidsonSymEigsSolver.setup_initial_search_space
+
+        def calculate_correction_vector(self):
+            pairs = self._ritz_pairs
+            return pairs.residues / (pairs.values - self._diagonal[:, None])
+
     n = 5000
     d = np.linspace(1.0, 100.0, n) ** 2
     A = sps.diags([np.full(n, 0.25), np.full(n, 0.5), d, np.full(n, 0.5),
                    np.full(n, 0.25)], [-1000, -1, 0, 1, 1000], shape=(n, n), format="csr")
-    issued = [0]  # QRs the route asks for, wherever it asks
+    issued = [0]  # QRs the loop asks for
     qr = porth.qr_orthogonalisation
 
     def counted(*args, **kwargs):
         issued[0] += 1
         return qr(*args, **kwargs)
 
-    monkeypatch.setattr(porth, "qr_orthogonalisation", counted)
     monkeypatch.setattr(jd_core, "qr_orthogonalisation", counted)
     out = []
     for device in ("cuda", "cpu"):
         op = stt.SparseSymMatProd.from_full(A, device=device)
         before = dmod.LAUNCHES
         qrs, library, issued[0] = tsqr.LAUNCHES, porth.LIBRARY_QRS, 0
-        e = stt.DavidsonSymEigsSolver(op, nev=10)
+        e = (stt.DavidsonSymEigsSolver if solver == "davidson" else DprOnly)(op, nev=10)
         nconv = e.compute(stt.SortRule.LargestAlge, maxit=150, tol=1e-9 * d.max())
         torch.cuda.synchronize()
         out.append((e, nconv, dmod.LAUNCHES - before, tsqr.LAUNCHES - qrs,
@@ -593,10 +602,7 @@ def test_davidson_on_dia_operator_on_card(cuda, monkeypatch, route):
     assert card.num_operations() == cpu.num_operations()
     np.testing.assert_allclose(card.eigenvalues(), cpu.eigenvalues(), atol=1e-9 * d.max())
     assert card.eigenvectors().device.type == "cuda"
-    if route == "auto":
-        assert launches == 1 + (card.num_operations() - 20) // 10
-    else:
-        assert launches >= 1
+    assert launches == 1 + (card.num_operations() - 20) // 10
     # every QR of the correction blocks is the kernel's, two an extension
     assert kernel_qrs == issued == 2 * (card.num_iterations() - 1)
     assert library_qrs == 0

@@ -2,16 +2,17 @@
 
 Every case of ``tests/test_davidson.py`` (the orthogonalization
 routines, Davidson on dense and sparse operators, the knobs,
-``compute_with_guess``, the fixed-buffer route against the host loop,
-the stagnation guard), each through both of the port's JD routes
-(``SPECTRA_TPU_JD_DRIVER`` ``auto`` and ``host``) against the JAX
-package's compiled route on the same matrix (the reference test holds
-the two routes to the same count; ``test_routes_agree`` runs the JAX
-package's host loop too): ``nconv``, ``CompInfo`` and the iteration
-count agree, the eigenvalues agree within the reference test's 1e-7
-(1e-9 between the packages), and the Ritz vectors agree up to sign. Also config #5b's
-matrix (``bench.py:386-402``) at n = 2,000 and a vanishing DPR
-denominator, which ends both packages with ``NumericalIssue``.
+``compute_with_guess``, the compiled route against the host loop, the
+stagnation guard) on the port's one JD iteration
+(``solvers/_jd_core.py``), each beside the JAX package on the same
+matrix: its compiled route, or its host loop for what only that loop
+serves there (``BothEnds``, a JD subclass with only
+``calculate_correction_vector``, a schedule wider than n).
+``nconv``, ``CompInfo`` and the iteration count agree, the eigenvalues
+agree within the reference test's 1e-7 (1e-9 between the packages),
+and the Ritz vectors agree up to sign. Also config #5b's matrix
+(``bench.py:386-402``) at n = 2,000 and a vanishing DPR denominator,
+which ends both packages with ``NumericalIssue``.
 """
 
 import numpy as np
@@ -23,12 +24,39 @@ import spectra_tpu as st
 from spectra_tpu.linalg import orthogonalization as jorth
 import spectra_tpu_torch as stt
 from spectra_tpu_torch.linalg import orthogonalization as porth
-from spectra_tpu_torch.solvers import _jd_core
+from spectra_tpu_torch.solvers import _jd_core, jd_sym_eigs
 
 torch.set_num_threads(1)
 
 CPU = "cpu"
-ROUTES = ["auto", "host"]
+#: Davidson itself, or a JD subclass with only the reference's seam.
+VARIANTS = ["davidson", "subclass"]
+
+
+class _JaxDprOnly(st.DavidsonSymEigsSolver):
+    """Davidson without the JAX package's compiled-route seam, so that
+    the JAX package runs its host loop."""
+
+    _correction_kernel = None
+
+
+class _DprOnly(stt.JDSymEigsBase):
+    """A JD subclass with only the reference's seam: Davidson's initial
+    space and the DPR correction, read from ``self._ritz_pairs``."""
+
+    def __init__(self, op, nev, nvec_init=None, nvec_max=None):
+        super().__init__(op, nev, nvec_init, nvec_max)
+        self._diagonal = op.diagonal()
+
+    setup_initial_search_space = stt.DavidsonSymEigsSolver.setup_initial_search_space
+
+    def calculate_correction_vector(self):
+        pairs, k = self._ritz_pairs, self._correction_size
+        return pairs.residues[:, :k] / (pairs.values[:k][None, :] - self._diagonal[:, None])
+
+
+SOLVERS = {"davidson": (st.DavidsonSymEigsSolver, stt.DavidsonSymEigsSolver),
+           "subclass": (_JaxDprOnly, _DprOnly)}
 
 
 def _diag_dominant(n, seed=42):
@@ -55,11 +83,11 @@ def _same_up_to_sign(U, W, atol):
         np.testing.assert_allclose(U[:, j], s * W[:, j], atol=atol)
 
 
-@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize("seed", [0, 1])
 @pytest.mark.parametrize("fn", ["qr", "gs", "mgs", "twice"])
-def test_orthogonalization_matches_jax(fn, route):
-    """``TestOrthogonalization`` (``route`` only varies the seed)."""
-    rng = np.random.default_rng(ROUTES.index(route))
+def test_orthogonalization_matches_jax(fn, seed):
+    """``TestOrthogonalization``."""
+    rng = np.random.default_rng(seed)
     if fn == "twice":
         Q0 = np.linalg.qr(rng.normal(size=(50, 5)))[0]
         A = np.concatenate([Q0, rng.normal(size=(50, 3))], axis=1)
@@ -83,22 +111,22 @@ def test_orthogonalization_matches_jax(fn, route):
         assert pfn(torch.from_numpy(A)).is_contiguous()
 
 
-def _run(monkeypatch, route, A, k, sel, maxit=200, tol=1e-9, sparse=False, knobs=None,
+def _run(monkeypatch, variant, A, k, sel, maxit=200, tol=1e-9, sparse=False, knobs=None,
          guess=None, jax_route="auto", niter_slack=0):
-    """Davidson through the JAX package on ``jax_route`` and the port on
-    ``route``; returns (jax, port) after checking nconv, CompInfo, the
-    iteration count (within ``niter_slack``), the values and the
-    vectors."""
+    """The ``variant`` solver through the JAX package on ``jax_route``
+    and through the port; returns (jax, port) after checking nconv,
+    CompInfo, the iteration count (within ``niter_slack``), the values
+    and the vectors."""
     if sparse:
         jop = st.SparseSymMatProd.from_full(sps.csr_matrix(A))
         pop = stt.SparseSymMatProd.from_full(sps.csr_matrix(A), device=CPU)
     else:
         jop = st.DenseSymMatProd.create(A)
         pop = stt.DenseSymMatProd.create(A, device=CPU)
+    monkeypatch.setenv("SPECTRA_TPU_JD_DRIVER", jax_route)  # the JAX package's switch
     out = []
-    for pkg, op, r in ((st, jop, jax_route), (stt, pop, route)):
-        monkeypatch.setenv("SPECTRA_TPU_JD_DRIVER", r)
-        s = pkg.DavidsonSymEigsSolver(op, nev=k, **(knobs or {}).get("init", {}))
+    for pkg, op, solver in zip((st, stt), (jop, pop), SOLVERS[variant]):
+        s = solver(op, nev=k, **(knobs or {}).get("init", {}))
         for name, value in (knobs or {}).get("set", {}).items():
             getattr(s, name)(value)
         rule = getattr(pkg.SortRule, sel)
@@ -116,15 +144,18 @@ def _run(monkeypatch, route, A, k, sel, maxit=200, tol=1e-9, sparse=False, knobs
     return j, p
 
 
-@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize("variant", VARIANTS)
 @pytest.mark.parametrize(
     "n,k,seed,sel",
-    [(100, 3, 42, "LargestAlge"), (400, 5, 42, "LargestAlge"), (120, 4, 7, "SmallestAlge")],
+    [(100, 3, 42, "LargestAlge"), (400, 5, 42, "LargestAlge"), (120, 4, 7, "SmallestAlge"),
+     (12, 2, 42, "LargestAlge"), (8, 3, 42, "LargestAlge")],
 )
-def test_davidson_dense_matches_jax(monkeypatch, route, n, k, seed, sel):
-    """``TestDavidson.test_largest`` and ``test_smallest``."""
+def test_davidson_dense_matches_jax(monkeypatch, variant, n, k, seed, sel):
+    """``TestDavidson.test_largest`` and ``test_smallest``; at n = 12
+    and 8 the growth schedule passes n (at 8 after the clamp to
+    i0 = c = n // 3 < nev), where the JAX package runs its host loop."""
     A = _diag_dominant(n, seed)
-    _, p = _run(monkeypatch, route, A, k, sel)
+    _, p = _run(monkeypatch, variant, A, k, sel)
     assert p.info() == stt.CompInfo.Successful
     vals, vecs = p.eigenvalues(), p.eigenvectors().numpy()
     assert np.abs(A @ vecs - vecs * vals[None, :]).max() < 1e-7
@@ -133,17 +164,24 @@ def test_davidson_dense_matches_jax(monkeypatch, route, n, k, seed, sel):
                                atol=1e-7)
 
 
-@pytest.mark.parametrize("route", ROUTES)
-def test_davidson_sparse_matches_jax(monkeypatch, route):
+def _both_ends(w, k):
+    """The ``BothEnds`` values of the ascending ``w``, ascending."""
+    return np.sort(np.concatenate([w[: k // 2], w[len(w) - (k + 1) // 2:]]))
+
+
+@pytest.mark.parametrize("sel", ["LargestAlge", "BothEnds"])
+def test_davidson_sparse_matches_jax(monkeypatch, sel):
     """``TestDavidson.test_sparse_op``: an ELL operator."""
     A = _sparse_diag_dominant()
-    _, p = _run(monkeypatch, route, A, 3, "LargestAlge", maxit=300, sparse=True)
+    _, p = _run(monkeypatch, "davidson", A, 3, sel, maxit=300, sparse=True)
     assert p.info() == stt.CompInfo.Successful
-    np.testing.assert_allclose(np.sort(p.eigenvalues()), np.linalg.eigvalsh(A)[-3:], atol=1e-7)
+    np.testing.assert_allclose(np.sort(p.eigenvalues()),
+                               _both_ends(np.linalg.eigvalsh(A), 3) if sel == "BothEnds"
+                               else np.linalg.eigvalsh(A)[-3:], atol=1e-7)
 
 
-@pytest.mark.parametrize("route", ROUTES)
-def test_davidson_knobs_match_jax(monkeypatch, route):
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_davidson_knobs_match_jax(monkeypatch, variant):
     """``TestDavidson.test_knobs``. Its second residual meets tol at the
     twelfth iteration within 0.2 % (9.99e-10 in the JAX package, 1.001e-9
     in the port: the products' rounding, CPU BLAS against XLA), so the
@@ -151,39 +189,50 @@ def test_davidson_knobs_match_jax(monkeypatch, route):
     knobs = dict(init=dict(nvec_init=4, nvec_max=20),
                  set=dict(set_correction_size=3, set_max_search_space_size=16,
                           set_initial_search_space_size=4))
-    _, p = _run(monkeypatch, route, _diag_dominant(50), 2, "LargestAlge", maxit=100,
+    _, p = _run(monkeypatch, variant, _diag_dominant(50), 2, "LargestAlge", maxit=100,
                 knobs=knobs, niter_slack=1)
     assert p.info() == stt.CompInfo.Successful
 
 
-@pytest.mark.parametrize("route", ROUTES)
-def test_compute_with_guess_matches_jax(monkeypatch, route):
+@pytest.mark.parametrize("sel", ["LargestAlge", "BothEnds"])
+def test_compute_with_guess_matches_jax(monkeypatch, sel):
     A = _diag_dominant(80)
     guess = np.linalg.qr(np.random.default_rng(5).normal(size=(80, 6)))[0]
-    _, p = _run(monkeypatch, route, A, 3, "LargestAlge", guess=guess)
+    _, p = _run(monkeypatch, "davidson", A, 3, sel, guess=guess)
     assert p.info() == stt.CompInfo.Successful
-    np.testing.assert_allclose(np.sort(p.eigenvalues()), np.linalg.eigvalsh(A)[-3:], atol=1e-7)
+    w = np.linalg.eigvalsh(A)
+    np.testing.assert_allclose(np.sort(p.eigenvalues()),
+                               _both_ends(w, 3) if sel == "BothEnds" else w[-3:], atol=1e-7)
 
 
 @pytest.mark.parametrize("sel", ["LargestAlge", "SmallestAlge"])
 def test_routes_agree(monkeypatch, sel):
-    """``TestCompiledDriver.test_matches_host_loop``: the same schedule
-    gives the same iteration count on both routes, each equal to the
-    JAX package's."""
+    """``TestCompiledDriver.test_matches_host_loop``: the port's one
+    loop takes the iterations of both JAX routes, and the operator
+    columns of the JAX host loop (counted at its operator)."""
     A = _diag_dominant(90, seed=11)
-    runs = {r: _run(monkeypatch, r, A, 3, sel, jax_route=r)[1] for r in ROUTES}
-    assert runs["auto"].num_iterations() == runs["host"].num_iterations()
-    assert runs["auto"].num_operations() == runs["host"].num_operations()
-    np.testing.assert_allclose(np.sort(runs["auto"].eigenvalues()),
-                               np.sort(runs["host"].eigenvalues()), rtol=1e-9, atol=1e-9)
+    jax_cols = []
+    perform_op = st.DenseSymMatProd.perform_op
+    monkeypatch.setattr(st.DenseSymMatProd, "perform_op",
+                        lambda self, X: jax_cols.append(np.shape(X)[-1]) or perform_op(self, X))
+    runs = {}
+    for r in ("auto", "host"):
+        jax_cols.clear()
+        runs[r] = _run(monkeypatch, "davidson", A, 3, sel, jax_route=r)
+    p = runs["host"][1]
+    assert (p.num_iterations() == runs["auto"][0].num_iterations()
+            == runs["host"][0].num_iterations())
+    assert runs["auto"][1].num_operations() == p.num_operations() == sum(jax_cols)
+    np.testing.assert_allclose(np.sort(p.eigenvalues()),
+                               np.sort(np.asarray(runs["host"][0].eigenvalues())),
+                               rtol=1e-9, atol=1e-9)
 
 
-def test_stagnation_guard_returns_best_iterate(monkeypatch):
+def test_stagnation_guard_returns_best_iterate():
     """``TestCompiledDriver.test_stagnation_guard_returns_best_iterate``:
     below the residual floor the loop stops on patience with the best
     snapshot. Where patience fires follows the rounding of the residual
     floor, so the count is held to the guard, not to the JAX package's."""
-    monkeypatch.setenv("SPECTRA_TPU_JD_DRIVER", "auto")
     A = _diag_dominant(150, seed=5)
     p = stt.DavidsonSymEigsSolver(stt.DenseSymMatProd.create(A, device=CPU), nev=3)
     p.compute(stt.SortRule.LargestAlge, maxit=500, tol=1e-17)
@@ -193,30 +242,47 @@ def test_stagnation_guard_returns_best_iterate(monkeypatch):
 
 
 def test_compiled_path_selected(monkeypatch):
-    monkeypatch.setenv("SPECTRA_TPU_JD_DRIVER", "auto")
+    """Every solve runs ``jd_compute`` once: ``BothEnds``, a subclass
+    with only ``calculate_correction_vector`` and a schedule wider than
+    n among them; the JAX package's ``SPECTRA_TPU_JD_DRIVER=host``
+    changes nothing in the port."""
+    calls = []
+    jd_compute = jd_sym_eigs.jd_compute
+    monkeypatch.setattr(jd_sym_eigs, "jd_compute",
+                        lambda *a, **kw: calls.append(kw["selection"]) or jd_compute(*a, **kw))
+
+    def solve(cls, A, nev, rule):
+        s = cls(stt.DenseSymMatProd.create(A, device=CPU), nev=nev)
+        nconv = s.compute(getattr(stt.SortRule, rule), maxit=100, tol=1e-9)
+        return s, (nconv, s.info(), s.num_iterations(), s.num_operations(),
+                   s.eigenvalues().tobytes(), s.eigenvectors().numpy().tobytes())
+
     A = _diag_dominant(60, seed=3)
-    p = stt.DavidsonSymEigsSolver(stt.DenseSymMatProd.create(A, device=CPU), nev=2)
-    j = st.DavidsonSymEigsSolver(st.DenseSymMatProd.create(A), nev=2)
-    for rule in ("LargestAlge", "BothEnds"):
-        assert p._use_compiled(getattr(stt.SortRule, rule)) == j._use_compiled(
-            getattr(st.SortRule, rule)) == (rule != "BothEnds")
-    monkeypatch.setenv("SPECTRA_TPU_JD_DRIVER", "host")
-    assert not p._use_compiled(stt.SortRule.LargestAlge)
-    monkeypatch.setenv("SPECTRA_TPU_JD_DRIVER", "fast")
-    with pytest.raises(ValueError, match="SPECTRA_TPU_JD_DRIVER"):
-        p._use_compiled(stt.SortRule.LargestAlge)
+    for cls, rule in ((stt.DavidsonSymEigsSolver, "LargestAlge"),
+                      (stt.DavidsonSymEigsSolver, "BothEnds"), (_DprOnly, "LargestAlge")):
+        _, out = solve(cls, A, 2, rule)
+        assert out[1] == stt.CompInfo.Successful
+    tiny, _ = solve(stt.DavidsonSymEigsSolver, _diag_dominant(8), 3, "LargestAlge")
+    assert _jd_core.schedule(tiny._initial_search_space_size, tiny._correction_size,
+                             tiny._max_search_space_size)[-1] > 8
+    assert [r.name for r in calls] == ["LargestAlge", "BothEnds", "LargestAlge", "LargestAlge"]
     assert _jd_core.schedule(20, 10, 100) == list(range(20, 120, 10))
+    _, auto = solve(stt.DavidsonSymEigsSolver, A, 2, "LargestAlge")
+    monkeypatch.setenv("SPECTRA_TPU_JD_DRIVER", "host")
+    _, host = solve(stt.DavidsonSymEigsSolver, A, 2, "LargestAlge")
+    assert host == auto and len(calls) == 6
 
 
-@pytest.mark.parametrize("route", ROUTES)
-def test_vanishing_dpr_denominator_is_numerical_issue(monkeypatch, route):
+@pytest.mark.parametrize("sel", ["LargestAlge", "BothEnds"])
+def test_vanishing_dpr_denominator_is_numerical_issue(monkeypatch, sel):
     """A diagonal matrix: the initial Ritz pairs are exact, at tol 0
     the DPR correction is 0/0, and both packages end with
     ``NumericalIssue`` and the last finite values."""
-    _, p = _run(monkeypatch, route, np.diag(np.arange(1.0, 41.0)), 2, "LargestAlge",
+    _, p = _run(monkeypatch, "davidson", np.diag(np.arange(1.0, 41.0)), 2, sel,
                 maxit=50, tol=0.0)
     assert p.info() == stt.CompInfo.NumericalIssue
-    np.testing.assert_array_equal(p.eigenvalues(), [40.0, 39.0])
+    np.testing.assert_array_equal(p.eigenvalues(),
+                                  [40.0, 1.0] if sel == "BothEnds" else [40.0, 39.0])
 
 
 def _config5b(n):
@@ -229,9 +295,9 @@ def _config5b(n):
 
 def test_config5b_matches_jax(monkeypatch):
     """Config #5b's matrix (``bench.py:386-402``) at n = 2,000 on the
-    fixed-buffer route: DIA, equal iteration counts, values within
-    1e-9 ||A|| of the JAX package's and of ``eigvalsh``."""
-    monkeypatch.setenv("SPECTRA_TPU_JD_DRIVER", "auto")
+    port's one loop: DIA, equal iteration counts, values within 1e-9
+    ||A|| of the JAX package's compiled route and of ``eigvalsh``."""
+    monkeypatch.setenv("SPECTRA_TPU_JD_DRIVER", "auto")  # the JAX package's switch
     A, d = _config5b(2000)
     tol = 1e-9 * float(d.max())
     pop = stt.SparseSymMatProd.from_full(A, device=CPU)

@@ -693,35 +693,26 @@ def case_whole_b(mesh, inp):
 
 
 def case_davidson_host(mesh, inp):
-    """The JD host loop (``SearchSpace``) over ``ShardedEllMatProd``:
-    BothEnds (always the host loop) and LargestAlge with
-    ``SPECTRA_TPU_JD_DRIVER=host``, each beside the single-device port."""
+    """The rules that the JAX package leaves to its JD host loop, and
+    another, on the port's one JD loop over ``ShardedEllMatProd``:
+    BothEnds and SmallestAlge, each beside the single-device port."""
     import spectra_tpu_torch as stt
     from spectra_tpu_torch.parallel import ShardedEllMatProd
 
     A = _davidson_matrix()
     out = {}
-    saved = os.environ.get("SPECTRA_TPU_JD_DRIVER")
-    try:
-        for rule, route in (("BothEnds", None), ("LargestAlge", "host")):
-            if route is not None:
-                os.environ["SPECTRA_TPU_JD_DRIVER"] = route
-            for label, op in (("", ShardedEllMatProd.create(A, mesh)),
-                              ("ref_", stt.SparseSymMatProd.from_full(A, format="ell",
-                                                                      device="cpu"))):
-                dav = stt.DavidsonSymEigsSolver(op, 4, 12)
-                nconv = dav.compute(getattr(stt.SortRule, rule), maxit=100, tol=1e-9)
-                out.update({f"{rule}_{label}nconv": nconv,
-                            f"{rule}_{label}values": dav.eigenvalues(),
-                            f"{rule}_{label}counts": [dav.num_iterations(),
-                                                       dav.num_operations()]})
-                if not label:
-                    out[f"{rule}_vectors"] = _gather(dav.eigenvectors(), mesh)
-    finally:
-        if saved is None:
-            os.environ.pop("SPECTRA_TPU_JD_DRIVER", None)
-        else:
-            os.environ["SPECTRA_TPU_JD_DRIVER"] = saved
+    for rule in ("BothEnds", "SmallestAlge"):
+        for label, op in (("", ShardedEllMatProd.create(A, mesh)),
+                          ("ref_", stt.SparseSymMatProd.from_full(A, format="ell",
+                                                                  device="cpu"))):
+            dav = stt.DavidsonSymEigsSolver(op, 4, 12)
+            nconv = dav.compute(getattr(stt.SortRule, rule), maxit=100, tol=1e-9)
+            out.update({f"{rule}_{label}nconv": nconv,
+                        f"{rule}_{label}values": dav.eigenvalues(),
+                        f"{rule}_{label}counts": [dav.num_iterations(),
+                                                   dav.num_operations()]})
+            if not label:
+                out[f"{rule}_vectors"] = _gather(dav.eigenvectors(), mesh)
     return out
 
 
@@ -1587,19 +1578,19 @@ def test_sharded_real_embedding(port, k, rule):
 
 
 @pytest.mark.parametrize("k", MESHES)
-@pytest.mark.parametrize("rule", ["BothEnds", "LargestAlge"])
+@pytest.mark.parametrize("rule", ["BothEnds", "SmallestAlge"])
 def test_sharded_davidson_host_route(port, k, rule):
-    """The JD host loop over ``ShardedEllMatProd`` (BothEnds, and
-    LargestAlge under ``SPECTRA_TPU_JD_DRIVER=host``): the wanted values
-    of ``eigvalsh`` within 1e-7 (the reference Davidson test's
-    tolerance), residuals under 1e-7, the single-device port's values
+    """The port's JD loop over ``ShardedEllMatProd`` under BothEnds,
+    which the JAX package leaves to its host loop, and SmallestAlge: the
+    wanted values of ``eigvalsh`` within 1e-7 (the reference Davidson
+    test's tolerance), residuals under 1e-7, the single-device port's values
     within 1e-12 and its counts. (The JAX package's host loop over its
     sharded operator recompiles each growing search space for the mesh,
     for minutes, so its values are not taken.)"""
     got = _get(port, k, "davidson_host")
     A = _davidson_matrix()
     w = np.sort(np.linalg.eigvalsh(A.toarray()))
-    want = np.sort(np.concatenate([w[:2], w[-2:]])) if rule == "BothEnds" else w[-4:]
+    want = np.sort(np.concatenate([w[:2], w[-2:]])) if rule == "BothEnds" else w[:4]
     vals = got[f"{rule}_values"]
     assert int(got[f"{rule}_nconv"]) == 4
     np.testing.assert_allclose(np.sort(vals), want, atol=1e-7)

@@ -1,9 +1,9 @@
 """The port's spans (``spectra_tpu_torch.util.profiling``) on the CPU.
 
 Under a CPU ``torch.profiler`` a Chebyshev-filtered solve and a
-Davidson solve (both JD routes) record their spans at the layer
-boundaries, as many as the solver's counters imply and nested as the
-calls are (one host eigh a Rayleigh-Ritz, held to one BLAS thread);
+Davidson solve (``LargestAlge`` and ``BothEnds``) record their spans at
+the layer boundaries, as many as the solver's counters imply and nested
+as the calls are (one host eigh a Rayleigh-Ritz, held to one BLAS thread);
 with no profiler running a span opens no ``record_function``; the
 results are bitwise the same with the profiler on and off; ``SPANS``
 names every span the program opens.
@@ -62,12 +62,11 @@ def thick_solve():
     return s, nconv
 
 
-def davidson_solve(route, monkeypatch):
+def davidson_solve(rule):
     """Davidson with a small maximal space, so that it collapses."""
-    monkeypatch.setenv("SPECTRA_TPU_JD_DRIVER", route)
     op = stt.DenseSymMatProd.create(diag_dominant(120), device="cpu")
     s = stt.DavidsonSymEigsSolver(op, nev=3, nvec_max=12)
-    nconv = s.compute(stt.SortRule.LargestAlge, maxit=100, tol=1e-10)
+    nconv = s.compute(getattr(stt.SortRule, rule), maxit=100, tol=1e-10)
     return s, nconv
 
 
@@ -126,9 +125,9 @@ def test_thick_restart_records_its_spans():
     assert all(within(x, spans["irlm.restart"]) for x in spans["irlm.shifts"])
 
 
-@pytest.mark.parametrize("route", ["auto", "host"])
-def test_davidson_solve_records_one_iteration_span_an_iteration(route, monkeypatch):
-    (s, nconv), spans = profiled(davidson_solve, route, monkeypatch)
+@pytest.mark.parametrize("rule", ["LargestAlge", "BothEnds"])
+def test_davidson_solve_records_one_iteration_span_an_iteration(rule):
+    (s, nconv), spans = profiled(davidson_solve, rule)
     assert nconv == 3 and s.info() == stt.CompInfo.Successful
     iterations = spans["jd.iteration"]
     assert len(iterations) == s.num_iterations() > 10
@@ -143,13 +142,13 @@ def test_davidson_solve_records_one_iteration_span_an_iteration(route, monkeypat
     assert all(within(x, iterations) for x in spans["jd.collapse"])
 
 
-@pytest.mark.parametrize("route", ["auto", "host"])
-def test_davidson_opens_one_eigh_span_a_rayleigh_ritz(route, monkeypatch):
-    (s, nconv), spans = profiled(davidson_solve, route, monkeypatch)
+@pytest.mark.parametrize("rule", ["LargestAlge", "BothEnds"])
+def test_davidson_opens_one_eigh_span_a_rayleigh_ritz(rule):
+    (s, nconv), spans = profiled(davidson_solve, rule)
     assert nconv == 3
     rr, eighs = spans["jd.rayleigh_ritz"], spans["jd.eigh"]
-    # The initial Rayleigh-Ritz of the default route lies outside the
-    # iterations; every one holds one eigh, and every eigh one limit.
+    # The initial Rayleigh-Ritz lies outside the iterations; every one
+    # holds one eigh, and every eigh one limit.
     assert len(rr) == len(eighs) >= s.num_iterations()
     for outer in rr:
         assert sum(within(e, [outer]) for e in eighs) == 1
@@ -168,9 +167,9 @@ def test_spans_open_no_record_function_without_a_profiler(monkeypatch):
     assert profiling.span("krylov.step") is profiling.span("jd.iteration")
     s, nconv = cheb_solve()
     assert nconv == 6
-    s, nconv = davidson_solve("auto", monkeypatch)
+    s, nconv = davidson_solve("LargestAlge")
     assert nconv == 3
-    s, nconv = davidson_solve("host", monkeypatch)
+    s, nconv = davidson_solve("BothEnds")
     assert nconv == 3
     # Under a profiler the same span is the profiler's range.
     with profile(activities=[ProfilerActivity.CPU]):
@@ -178,14 +177,15 @@ def test_spans_open_no_record_function_without_a_profiler(monkeypatch):
             profiling.span("krylov.step")
 
 
-@pytest.mark.parametrize("case", ["cheb", "thick", "davidson_auto", "davidson_host"])
-def test_results_are_bitwise_the_same_with_the_profiler_on(case, monkeypatch):
+@pytest.mark.parametrize("case", ["cheb", "thick", "davidson_LargestAlge",
+                                  "davidson_BothEnds"])
+def test_results_are_bitwise_the_same_with_the_profiler_on(case):
     def solve():
         if case == "cheb":
             return cheb_solve()
         if case == "thick":
             return thick_solve()
-        return davidson_solve(case.split("_")[1], monkeypatch)
+        return davidson_solve(case.split("_")[1])
 
     def outcome(s, nconv):
         vecs = s.eigenvectors()
