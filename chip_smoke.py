@@ -95,6 +95,15 @@ Phases, each printing JSON lines and its wall time:
     partial SVD's vectors and 5 columns at n = 10^4, bitwise against its
     plain version, timed beside its bound, plain version and the
     ``torch.sparse`` CSR product;
+11l'. ``cheb_step``: the Chebyshev recurrence kernel
+    (``ops/cheb_step.py``) bitwise against its plain version (the five
+    PyTorch operations the filter made before it) at n = 10^6 and
+    1,000,003, f64, f32, c128 and c64, a vector and a 3-column block,
+    the first step, a later one and in place over ``t_prev``, then timed
+    at config #2's shape, (10^6,) f64, cold beside its byte bound and the
+    plain sequence, with each one's host microseconds a call; its
+    launches in config #2 (phase 10) are asserted to be ``degree`` a
+    filtered operation;
 11m. ``frontends``: ``stt.eigsh`` (config #3's shift-invert with the
     multigrid inner solve, and the 10 largest of the same matrix),
     ``stt.eigs`` (config #4's operator at g=100), ``stt.svds`` (dense
@@ -133,7 +142,8 @@ Phases, each printing JSON lines and its wall time:
     over NCCL at full width (``ChebSymEigsSolver`` over
     ``sharded_stencil_op`` of the g=1000 Laplacian: the f64 stencil class
     on K1), held to ``main_path_cheb_g1000`` of the same run (restarts,
-    filtered operations and K1 launches equal, values within 1e-12), K1
+    filtered operations and K1 launches equal, values within 1e-12, the
+    recurrence kernel's launches ``degree`` a filtered operation), K1
     bitwise on the halo-extended vector and the Rayleigh quotients'
     10-column block, the sharded product timed beside its K1 launch;
 12c. ``multidevice_2rank``: two processes on the one card in a gloo
@@ -227,6 +237,13 @@ REPLACES = {
         "scripts/tpu_dia_f32_ceiling.py:33",
         "scripts/tpu_dia_f32_ceiling.py::dia_spmv_f32 (ported by K1's f32 kernel)",
     ),
+    "cheb_step": (
+        "none",
+        "no Pallas kernel: the JAX package leaves the filter's recurrence "
+        "passes to XLA (spectra_tpu/matop/chebyshev.py::"
+        "ChebyshevFilteredOp.perform_op); on the card it takes the place of "
+        "the five PyTorch elementwise launches after each product",
+    ),
     "tsqr": (
         "none",
         "no Pallas kernel: the JAX package leaves this QR to XLA "
@@ -243,6 +260,7 @@ SOURCES = {
     "dia_roll2d": "dia_variants.cu",
     "dia_spmv_f32": "dia_spmv.cu",
     "tsqr": "tsqr.cu",
+    "cheb_step": "cheb_step.cu",
 }
 ROLL2D_ROWS = (32, 64, 128, 256)
 #: P4's rows in the comparison with a parent checkout.
@@ -687,6 +705,7 @@ def run_irlm(torch, stt, dmod):
 
 def run_main_path(torch, stt, dmod):
     """Config #2 as bench.py:152-186 runs it; returns K1's launches."""
+    from spectra_tpu_torch.ops import cheb_step
     from spectra_tpu_torch.util.rng import SimpleRandom
 
     A = laplacian_2d(G_FULL)
@@ -694,7 +713,7 @@ def run_main_path(torch, stt, dmod):
     v0 = SimpleRandom(0).random_vec(n)
     op = stt.SparseSymMatProd.from_full(A)  # DIA storage on the card
     torch.cuda.synchronize()
-    dmod.LAUNCHES = 0
+    dmod.LAUNCHES = cheb_step.LAUNCHES = 0
     t0 = time.perf_counter()
     e = stt.ChebSymEigsSolver(
         op, nev=10, ncv=30, which="largest", degree=DEGREE,
@@ -705,7 +724,7 @@ def run_main_path(torch, stt, dmod):
     nconv = e.compute(maxit=60)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dmod.LAUNCHES
+    launches, cheb_launches = dmod.LAUNCHES, cheb_step.LAUNCHES
     vals = e.eigenvalues()
     err = float(np.abs(np.sort(vals) - analytic_2d(G_FULL)[-len(vals):]).max())
     # SpMVs the solve must have made: the 30-step Lanczos of the
@@ -715,7 +734,8 @@ def run_main_path(torch, stt, dmod):
     res = e._result
     emit(phase="main_path_cheb_g1000", nconv=nconv, info=e.info().name,
          restarts=e.num_iterations(), filtered_operations=e.num_operations(),
-         launches=launches, expected_spmvs=expected, wall_s=wall,
+         launches=launches, expected_spmvs=expected,
+         cheb_step_launches=cheb_launches, wall_s=wall,
          max_err_vs_analytic=err, V_device=str(res.V.device),
          f_device=str(res.f.device), history=e.convergence_history())
     if nconv != 10 or err > 1e-9:
@@ -724,8 +744,12 @@ def run_main_path(torch, stt, dmod):
         raise RuntimeError("the Krylov basis left the card")
     if launches == 0 or launches != expected:
         raise RuntimeError(f"K1 launched {launches} times, expected {expected}")
+    if cheb_launches != DEGREE * e.num_operations():
+        raise RuntimeError(f"the recurrence kernel launched {cheb_launches} times, "
+                           f"expected {DEGREE * e.num_operations()}")
     main = dict(values=np.asarray(vals), restarts=e.num_iterations(),
-                operations=e.num_operations(), launches=launches, wall_s=wall)
+                operations=e.num_operations(), launches=launches, wall_s=wall,
+                cheb_step_launches=cheb_launches)
     return launches, op, v0, main
 
 
@@ -3303,6 +3327,7 @@ def run_multidevice_cheb(torch, stt, dmod, dsmod, pf, main, rates):
     sharded product (halo copy and K1) is timed beside its K1 launch, the
     bound, the plain version, the unsharded ``DiaMatrix.matvec`` and the
     CSR call. Returns the one-rank result and the kernel-line numbers."""
+    from spectra_tpu_torch.ops import cheb_step
     from spectra_tpu_torch.parallel import ShardedStencilMatProd, row_mesh, sharded_stencil_op
     from spectra_tpu_torch.parallel.stencil_spmv import host_dia
     from spectra_tpu_torch.util.rng import SimpleRandom
@@ -3318,11 +3343,12 @@ def run_multidevice_cheb(torch, stt, dmod, dsmod, pf, main, rates):
         raise RuntimeError(f"auto-routing chose {type(op).__name__} for config #2")
     v0 = SimpleRandom(0).random_vec(n)
     torch.cuda.synchronize()
-    dmod.LAUNCHES = dsmod.LAUNCHES = 0
+    dmod.LAUNCHES = dsmod.LAUNCHES = cheb_step.LAUNCHES = 0
     k1_entries = count_entries(dmod)
     mesh.reset_stats()
     e, nconv, wall = solve_config2(torch, stt, op, v0)
     launches, k2, entries = dmod.LAUNCHES, dsmod.LAUNCHES, dict(k1_entries)
+    cheb_launches = cheb_step.LAUNCHES
     stats = dict(mesh.stats)
     vals = np.sort(e.eigenvalues())
     ops = e.num_operations()
@@ -3373,7 +3399,9 @@ def run_multidevice_cheb(torch, stt, dmod, dsmod, pf, main, rates):
          restarts=e.num_iterations(), filtered_operations=ops,
          main_path_restarts=main["restarts"], main_path_operations=main["operations"],
          launches=launches, main_path_launches=main["launches"], expected_spmvs=expected,
-         entry_launches=entries, k2_launches=k2, wall_s=wall, main_path_wall_s=main["wall_s"],
+         entry_launches=entries, k2_launches=k2, cheb_step_launches=cheb_launches,
+         main_path_cheb_step_launches=main["cheb_step_launches"],
+         wall_s=wall, main_path_wall_s=main["wall_s"],
          max_err_vs_analytic=err, max_diff_vs_main_path=diff, collectives=stats,
          all_reduces_per_operation=stats["all_reduce"] / max(1, ops),
          k1_halo_extended=k1_ext, halo=[lo, hi], one_ulp_start_runs=ulp_runs,
@@ -3385,10 +3413,14 @@ def run_multidevice_cheb(torch, stt, dmod, dsmod, pf, main, rates):
                                               main["launches"]) or launches != expected:
         raise RuntimeError(f"config #2 sharded: restarts {e.num_iterations()}, operations "
                            f"{ops}, K1 {launches}; main path {main}")
+    if cheb_launches != DEGREE * ops:
+        raise RuntimeError(f"config #2 sharded: the recurrence kernel launched "
+                           f"{cheb_launches} times, expected {DEGREE * ops}")
     if k2 != 0 or not all(rec["ok"] for rec in checks):
         raise RuntimeError(f"config #2 sharded: K2 {k2} launches, kernel checks {checks}")
     return dict(values=vals.tolist(), restarts=e.num_iterations(), operations=ops,
-                launches=launches, wall_s=wall, k1_ext=k1_ext, checks=len(checks),
+                launches=launches, cheb_step_launches=cheb_launches, wall_s=wall,
+                k1_ext=k1_ext, checks=len(checks),
                 ulp_counts=[[r["restarts"], r["operations"]] for r in ulp_runs])
 
 
@@ -3914,6 +3946,70 @@ def phase_tsqr(torch, rates):
     return out, worst, launches
 
 
+#: n of the recurrence kernel's bitwise checks: config #2's, and one
+#: odd, so that the kernel's tail runs.
+CHEB_STEP_NS = (1_000_000, 1_000_003)
+
+
+def same_bits(torch, a):
+    """``a``'s bits as integers (a complex tensor's real view)."""
+    a = torch.view_as_real(a) if a.is_complex() else a
+    return a.contiguous().view(torch.int64 if a.element_size() == 8 else torch.int32)
+
+
+def phase_cheb_step(torch, rates):
+    """The Chebyshev recurrence kernel (``ops/cheb_step.py``) bitwise
+    against its plain version at ``CHEB_STEP_NS``, f64, f32, c128 and c64
+    (complex as the real view), a vector and a 3-column block, the first step, a later one and one written
+    over ``t_prev`` (``kernel_vs_plain`` records), with config #2's
+    scalars; then at (10^6,) f64, a later step in place as the filter
+    makes it, timed cold beside its bound (y, t and t_prev read and the
+    result written once, 32 bytes an element) and the plain sequence,
+    and each one's enqueue time. Returns the timing, the largest
+    distance from the plain result (0: bitwise) and the launches."""
+    from spectra_tpu_torch.ops import cheb_step as cs
+
+    bandwidth, f64_rate, _ = rates
+    c, h = 0.5 * (7.96 + -0.4), 0.5 * (7.96 - -0.4)  # config #2's interval
+    before, worst = cs.LAUNCHES, 0.0
+    for n in CHEB_STEP_NS:
+        for dtype in (torch.float64, torch.float32, torch.complex128, torch.complex64):
+            for shape in ((n,), (n, 3)):
+                g = torch.Generator(device="cuda").manual_seed(n + len(shape))
+                y, t, t_prev = (torch.randn(shape, dtype=dtype, device="cuda", generator=g)
+                                for _ in range(3))
+                for kind in ("first", "later", "in_place"):
+                    prev = None if kind == "first" else t_prev.clone()
+                    want = cs.cheb_step_plain(y, t, prev, c, h)
+                    got = cs.cheb_step(y, t, prev, c, h, overwrite=kind == "in_place")
+                    torch.cuda.synchronize()
+                    err = float((got - want).abs().max())
+                    ok = bool(torch.equal(same_bits(torch, got), same_bits(torch, want)))
+                    worst = max(worst, err)
+                    emit(phase="kernel_vs_plain", kernel="cheb_step",
+                         case=f"{'x'.join(map(str, shape))}_{str(dtype)[6:]}_{kind}",
+                         ok=ok, max_abs_err=err)
+                    if not ok:
+                        raise RuntimeError(f"the recurrence kernel at {shape} {dtype} "
+                                           f"{kind} is not bitwise its plain version")
+    launches = cs.LAUNCHES - before
+    n = 1_000_000
+    y, t, t_prev = (torch.randn(n, dtype=torch.float64, device="cuda") for _ in range(3))
+    timer = Timer(torch)
+    t_ = timed_entry(timer, lambda: cs.cheb_step(y, t, t_prev, c, h, overwrite=True),
+                     lambda: cs.cheb_step_plain(y, t, t_prev, c, h), None,
+                     4 * n * 8, 5 * n, f64_rate, bandwidth, back_to_back=True)
+    t_.update(kernel="cheb_step", n=n, dtype="float64", us=t_["ms"] * 1e3,
+              bound_us=t_["bound_ms"] * 1e3, plain_us=t_["plain_ms"] * 1e3,
+              back_to_back_us=t_["back_to_back_ms"] * 1e3,
+              enqueue_us=enqueue_us(
+                  torch, lambda: cs.cheb_step(y, t, t_prev, c, h, overwrite=True)),
+              plain_enqueue_us=enqueue_us(
+                  torch, lambda: cs.cheb_step_plain(y, t, t_prev, c, h)))
+    emit(phase="kernel_timing", **t_)
+    return t_, worst, launches
+
+
 def kernel_entry(name, launches, max_abs_err, t, shape, **extra):
     replaces, function = REPLACES[name]
     return dict(
@@ -4022,6 +4118,7 @@ def main(argv):
     phase("contrib", run_contrib, torch, stt, dmod)
     k1_blocks = phase("k1_block_timing", phase_k1_blocks, torch, dmod, pf, rates, k1_floor)
     tsqr_t, tsqr_err, tsqr_launches = phase("tsqr", phase_tsqr, torch, rates)
+    cheb_t, cheb_err, cheb_launches = phase("cheb_step", phase_cheb_step, torch, rates)
     k1_frontends = phase("frontends", run_frontends, torch, stt, dmod, pmg, pf)
     k1_mixed = phase("mixed_precision", run_mixed_precision, torch, stt, dmod, pf)
     k1_nonfinite = phase("nonfinite", run_nonfinite, torch, stt, dmod, pf)
@@ -4139,6 +4236,16 @@ def main(argv):
             c20=tsqr_t["1000000x20"], launches_check=tsqr_launches,
             launches_path="config5b_davidson at n=10^6: two a Davidson iteration that "
                           "extends the space; launches_check: the tsqr phase's checks",
+        ),
+        kernel_entry(
+            "cheb_step", main["cheb_step_launches"], cheb_err, cheb_t,
+            "n=10^6, float64, a later step in place (config #2's filter)",
+            back_to_back_us=cheb_t["back_to_back_us"], enqueue_us=cheb_t["enqueue_us"],
+            plain_enqueue_us=cheb_t["plain_enqueue_us"], launches_check=cheb_launches,
+            launches_multidevice_cheb_g1000=cheb_md["cheb_step_launches"],
+            launches_path="config2_main_path: one a degree step of each filtered "
+                          "operation (so multidevice_cheb_g1000 on the row mesh); "
+                          "launches_check: the cheb_step phase's checks",
         ),
     ])
     emit(phase_walls=walls, total_s=sum(walls.values()))

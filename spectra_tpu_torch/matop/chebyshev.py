@@ -9,7 +9,8 @@ it |T_d| <= 1, outside it grows like cosh(d*acosh(.)), so the wanted
 eigenvalues separate exponentially. Eigenvectors are unchanged; the
 true eigenvalues come back as Rayleigh quotients with the original
 operator. One ``perform_op`` costs ``degree`` SpMVs of the underlying
-operator: a host loop of three-term recurrences over device vectors.
+operator: a host loop of three-term recurrences over device vectors,
+each step one product and one update (``ops/cheb_step.py``).
 
 Over a row-sharded operator (one that carries a ``mesh``) the filter
 carries the same mesh: vectors are the rank's rows, the recurrence is
@@ -22,6 +23,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from spectra_tpu_torch.ops.cheb_step import cheb_step
 from spectra_tpu_torch.util.dtypes import numpy_dtype
 from spectra_tpu_torch.util.profiling import span
 
@@ -62,18 +64,20 @@ class ChebyshevFilteredOp:
     def cols(self) -> int:
         return self.op.cols()
 
-    def _scaled_matvec(self, x):
+    def perform_op(self, x):
+        # T_0 = x, T_1 = L(A) x, T_{k+1} = 2 L(A) T_k - T_{k-1}, with
+        # L(A) t = (A t - c t) / h: each step one product and one
+        # recurrence update (one kernel launch on the card, cheb_step.py).
+        # From T_3 on the update writes over T_{k-1}, never over x.
         c = 0.5 * (self.hi + self.lo)
         h = 0.5 * (self.hi - self.lo)
-        return (self.op.perform_op(x) - c * x) / h
-
-    def perform_op(self, x):
-        # T_0 = x, T_1 = L(A) x, T_{k+1} = 2 L(A) T_k - T_{k-1}
         with span("cheb.filter"):
             t_prev = x
-            t_cur = self._scaled_matvec(x)
-            for _ in range(1, self.degree):
-                t_prev, t_cur = t_cur, 2.0 * self._scaled_matvec(t_cur) - t_prev
+            t_cur = cheb_step(self.op.perform_op(x), x, None, c, h)
+            for k in range(1, self.degree):
+                y = self.op.perform_op(t_cur)
+                t_next = cheb_step(y, t_cur, t_prev, c, h, overwrite=k > 1)
+                t_prev, t_cur = t_cur, t_next
             return t_cur
 
     def rayleigh_quotients(self, vecs):

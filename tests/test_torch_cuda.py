@@ -10,6 +10,7 @@ import pytest
 import scipy.sparse as sps
 import torch
 
+from spectra_tpu_torch.ops import cheb_step as cs
 from spectra_tpu_torch.ops import dia_ds as dsmod
 from spectra_tpu_torch.ops import dia_spmv as dmod
 from spectra_tpu_torch.ops import dia_variants as dv
@@ -818,3 +819,110 @@ def test_tsqr_ill_conditioned_blocks_on_card(cuda, kind):
     Q, R = tsqr.tsqr(A)
     orth, resid = _tsqr_checks(A, Q, R)
     assert orth <= 1e-13 and resid <= 1e-14
+
+
+#: The filter's scalars at config #2's interval (about [-0.4, 7.96]).
+CHEB_C, CHEB_H = 0.5 * (7.96 + -0.4), 0.5 * (7.96 - -0.4)
+
+
+def _bits(a):
+    """``a``'s bits as integers (a complex tensor's real view), so that
+    signed zeros and NaN payloads count."""
+    a = torch.view_as_real(a) if a.is_complex() else a
+    return a.contiguous().view(torch.int64 if a.element_size() == 8 else torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["first", "later", "in_place", "unaligned"])
+@pytest.mark.parametrize("shape", [(10**6,), (1_000_003,), (10**6, 3), (3,)],
+                         ids=["1e6", "1000003", "1e6x3", "3"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.complex128,
+                                   torch.complex64], ids=["f64", "f32", "c128", "c64"])
+def test_cheb_step_bitwise_on_card(cuda, dtype, shape, mode):
+    """The recurrence kernel against its plain version on the card, the
+    same five PyTorch operations the filter made before it: bitwise, on
+    the first step and a later one, written over ``t_prev``, and on views
+    that are not 16-byte aligned (one element a thread); complex vectors
+    as their real view."""
+    g = torch.Generator(device="cuda").manual_seed(sum(shape))
+    n = int(np.prod(shape))
+    if mode == "unaligned":
+        y, t, t_prev = (torch.randn(n + 1, dtype=dtype, device="cuda", generator=g)[1:]
+                        .view(shape) for _ in range(3))
+    else:
+        y, t, t_prev = (torch.randn(shape, dtype=dtype, device="cuda", generator=g)
+                        for _ in range(3))
+    if mode == "first":
+        t_prev = None
+    assert cs.routes_to_kernel(t)
+    want = cs.cheb_step_plain(y, t, t_prev, CHEB_C, CHEB_H)
+    before, at = cs.LAUNCHES, None if t_prev is None else t_prev.data_ptr()
+    got = cs.cheb_step(y, t, t_prev, CHEB_C, CHEB_H, overwrite=mode == "in_place")
+    torch.cuda.synchronize()
+    assert cs.LAUNCHES == before + 1
+    assert (got.data_ptr() == at) == (mode == "in_place")
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.cuda
+def test_cheb_step_routes_on_card(cuda):
+    """Every operand on the card goes to the kernel: columns of a block
+    (not contiguous) as contiguous copies and complex vectors as their
+    real view, bitwise the plain sequence, one launch each. Mismatched
+    operands and a dtype the kernel does not take raise and launch
+    nothing."""
+    x = torch.randn(1000, dtype=torch.float64, device="cuda")
+    X = torch.randn((1000, 4), dtype=torch.float64, device="cuda")
+    Z = torch.randn((1000, 3), dtype=torch.complex128, device="cuda")
+    cases = [(X[:, 1], X[:, 2], X[:, 3]), (x, X[:, 0], None), (Z[:, 0], Z[:, 1], Z[:, 2]),
+             (Z[:, 0].contiguous(), Z[:, 1].contiguous(), None)]
+    for y, t, t_prev in cases:
+        before = cs.LAUNCHES
+        want = cs.cheb_step_plain(y, t, t_prev, CHEB_C, CHEB_H)
+        got = cs.cheb_step(y, t, t_prev, CHEB_C, CHEB_H)
+        torch.cuda.synchronize()
+        assert cs.LAUNCHES == before + 1
+        assert torch.equal(_bits(got), _bits(want))
+    before = cs.LAUNCHES
+    for y, t, t_prev in [(x, x, x.float()), (x, x[:999], None), (x, x, x.cpu()),
+                         (x.half(), x.half(), None), (Z[:, 0], x, None)]:
+        with pytest.raises(ValueError):
+            cs.cheb_step(y, t, t_prev, CHEB_C, CHEB_H)
+    assert cs.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_chebyshev_solver_kernel_equals_plain_on_card(cuda, monkeypatch):
+    """A Chebyshev IRLM on the g=100 Laplacian with the recurrence kernel
+    and with the plain step (swapped in here) makes the same restarts and
+    operations and gives the same eigenvalue and eigenvector bits; the
+    kernel launches once a degree step."""
+    import spectra_tpu_torch as stt
+    from spectra_tpu_torch.matop import chebyshev
+
+    g, degree = 100, 30
+    lap1 = sps.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(g, g))
+    A = (sps.kron(sps.eye(g), lap1) + sps.kron(lap1, sps.eye(g))).tocsr()
+    op = stt.SparseSymMatProd.from_full(A)
+
+    def solve():
+        e = stt.ChebSymEigsSolver(op, nev=6, ncv=20, which="largest", degree=degree,
+                                  cut_fraction=0.01)
+        e.init()
+        nconv = e.compute(maxit=60)
+        torch.cuda.synchronize()
+        return (nconv, e.num_iterations(), e.num_operations(),
+                np.asarray(e.eigenvalues()), e.eigenvectors().cpu())
+
+    before = cs.LAUNCHES
+    kernel = solve()
+    assert kernel[0] == 6
+    assert cs.LAUNCHES - before == degree * kernel[2]
+    monkeypatch.setattr(chebyshev, "cheb_step",
+                        lambda y, t, t_prev, c, h, overwrite=False:
+                        cs.cheb_step_plain(y, t, t_prev, c, h))
+    plain = solve()
+    assert cs.LAUNCHES - before == degree * kernel[2]
+    assert kernel[:3] == plain[:3]
+    assert np.array_equal(kernel[3].view(np.int64), plain[3].view(np.int64))
+    assert torch.equal(_bits(kernel[4]), _bits(plain[4]))
